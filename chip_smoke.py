@@ -6,18 +6,26 @@ Run from the root of a checkout on a machine with one NVIDIA card:
 
 Phases, each fatal on failure:
   1. print the card's name and power limit (nvidia-smi);
-  2. build the hand-written CUDA kernels (one nvcc per source, in parallel);
+  2. build the hand-written CUDA kernels (one nvcc per source, in
+     parallel) and the native initial bipartitioner (g++, ip.cpp);
   3. run every kernel at the shapes the main path gives it, hold it
      bitwise against its plain torch twin on the same CUDA tensors, and
      time kernel, twin and (where one exists) a single PyTorch library
-     call;
+     call; K1 is also timed in every launch shape of
+     gather.GATHER_VARIANTS, and K1 and K2 are held against their twins
+     on edge cases (an odd-length index view at every offset, hub rows of
+     45k edges, a k beyond K2's shared-memory design, delta-round spans
+     cut at the buffer);
   4. partition make_rmat(1<<14, 120_000, seed=3) at k=8 on the CPU and on
-     the card: the two partitions must be bitwise equal;
+     the card: the two partitions must be bitwise equal, and both must
+     have run the native initial bipartitioner;
   5. the main path, KaMinPar("default").compute_partition(k=16, eps=0.03,
      seed=1), on the bench's two graphs: make_rmat(1<<20, 10_000_000,
      seed=7) and make_rmat(1<<16, 600_000, seed=3).  Each partition must
      be in range and within the strict caps, and its device cut must equal
-     a numpy recount; every kernel must have launched during the phase;
+     a numpy recount; every kernel must have launched during the phase,
+     and the native initial bipartitioner in each cell.  Every launch is
+     bracketed by CUDA events, summed per kernel and cell as `path_ms`;
   6. print the per-kernel JSON line, then the final status line.
 
 The rating engine is chosen per level from the graph's density: the large
@@ -51,8 +59,11 @@ def fail(msg: str) -> None:
     sys.exit(1)
 
 
-def time_ms(fn, torch, reps: int = 10, warmup: int = 3) -> float:
-    """Median of `reps` CUDA-event timings of one call, after warm-up."""
+def time_ms(fn, torch, reps: int = 10, warmup: int = 3,
+            batch: int = 10) -> float:
+    """Time of one call: CUDA events around `batch` calls in a row (so the
+    host's launch work overlaps the device's), over `batch`; the median
+    of `reps` such runs, after warm-up."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -61,10 +72,11 @@ def time_ms(fn, torch, reps: int = 10, warmup: int = 3) -> float:
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(batch):
+            fn()
         end.record()
         torch.cuda.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / batch)
     return float(statistics.median(times))
 
 
@@ -85,11 +97,11 @@ def main() -> None:
         fail("torch.cuda.is_available() is False")
     try:
         import kaminpar_tpu_torch as kp
-        from kaminpar_tpu_torch import _native
+        from kaminpar_tpu_torch import _native, native
         from kaminpar_tpu_torch.graphs.csr import device_graph_from_host
         from kaminpar_tpu_torch.graphs.factories import make_rmat
         from kaminpar_tpu_torch.graphs.host import remove_isolated_nodes
-        from kaminpar_tpu_torch.ops import gather, metrics, rating
+        from kaminpar_tpu_torch.ops import gather, metrics, rating, segments
         from kaminpar_tpu_torch.partitioning.coarsener import Coarsener
     except ImportError as exc:
         fail(f"kaminpar_tpu_torch is not importable here ({exc})")
@@ -106,9 +118,12 @@ def main() -> None:
     # -- 2. build
     t0 = time.perf_counter()
     build_s = _native.build()
+    t1 = time.perf_counter()
+    native.build()
     print(json.dumps({"build_s": round(time.perf_counter() - t0, 3),
                       "per_source_s": {k: round(v, 3)
-                                       for k, v in build_s.items()}}),
+                                       for k, v in build_s.items()},
+                      "ip_cpp_s": round(time.perf_counter() - t1, 3)}),
           flush=True)
 
     # -- 3. kernels vs twins at the main path's shapes
@@ -145,6 +160,24 @@ def main() -> None:
     torch.cuda.synchronize()
     if not torch.equal(out, ref):
         fail("K1 gather_i32 disagrees with its twin")
+    # every launch shape at the main path's shape, and an odd-length view
+    # at every offset from a 16-byte boundary
+    sweep = []
+    for variant in gather.GATHER_VARIANTS:
+        if not torch.equal(gather.gather_i32(labels, dg.dst, variant), ref):
+            fail(f"K1 gather_i32 {variant} disagrees with its twin")
+        sweep.append({"variant": list(variant), "ms": time_ms(
+            lambda v=variant: gather.gather_i32(labels, dg.dst, v), torch)})
+    for off in range(4):
+        view = dg.dst[off: off + 1_000_001]
+        ref_view = gather.gather_i32_twin(labels, view)
+        for variant in gather.GATHER_VARIANTS:
+            if not torch.equal(gather.gather_i32(labels, view, variant),
+                               ref_view):
+                fail(f"K1 gather_i32 {variant} disagrees on a view at "
+                     f"offset {off}")
+    print(json.dumps({"k1_sweep": sweep, "default": list(
+        gather.GATHER_VARIANT)}), flush=True)
     b, by = bound_ms(4 * m_pad + 4 * n_pad + 4 * m_pad, 0)
     kernels.append({
         "name": "gather_i32", "route": "cuda",
@@ -159,12 +192,22 @@ def main() -> None:
         "shape": {"graph": "large", "table": n_pad, "idx": m_pad},
     })
 
-    args2 = (dg.src, dg.dst, dg.edge_w, part, n_pad, K_MAIN)
+    spans = (dg.row_ptr[:-1], dg.row_ptr[1:])
+    args2 = (*spans, dg.dst, dg.edge_w, part, n_pad, K_MAIN)
     out = gather.dense_block_ratings(*args2)
     ref = gather.dense_block_ratings_twin(*args2)
     torch.cuda.synchronize()
     if not torch.equal(out, ref):
         fail("K2 dense_block_ratings disagrees with its twin")
+    k2_sweep = []
+    for variant in gather.RATINGS_VARIANTS:
+        if not torch.equal(gather.dense_block_ratings(*args2, variant), ref):
+            fail(f"K2 dense_block_ratings {variant} disagrees with its twin")
+        k2_sweep.append({"variant": list(variant), "ms": time_ms(
+            lambda v=variant: gather.dense_block_ratings(*args2, v), torch)})
+    print(json.dumps({"k2_sweep": k2_sweep, "default": list(
+        gather.RATINGS_VARIANT)}), flush=True)
+    check_k2_edge_cases(dg, gather, segments, rng, dev, torch)
 
     def library_k2():
         flat = (dg.src.to(torch.int64) * K_MAIN
@@ -173,11 +216,10 @@ def main() -> None:
         conn.index_put_((flat,), dg.edge_w, accumulate=True)
         return conn
 
-    # the kernel must read every weight; src, dst and the label only for
-    # the non-zero (real) edges; the table is written once
-    nz = int((dg.edge_w != 0).sum())
-    b, by = bound_ms(4 * m_pad + 8 * nz + 4 * n_pad + 4 * n_pad * K_MAIN,
-                     nz)
+    # the spans, the real edges' dst and w, the labels, and the table
+    # written once; one add per real edge
+    b, by = bound_ms(8 * n_pad + 8 * dg.m + 4 * n_pad + 4 * n_pad * K_MAIN,
+                     dg.m)
     kernels.append({
         "name": "dense_block_ratings", "route": "cuda",
         "source": "kaminpar_tpu_torch/csrc/dense_ratings.cu",
@@ -187,9 +229,10 @@ def main() -> None:
         "plain_ms": time_ms(
             lambda: gather.dense_block_ratings_twin(*args2), torch),
         "bound_ms": b, "bound_by": by,
-        "library_ms": time_ms(library_k2, torch),
-        "shape": {"graph": "large", "edges": m_pad, "rows": n_pad,
-                  "k": K_MAIN},
+        "library_ms": time_ms(library_k2, torch, reps=3, warmup=1,
+                              batch=1),
+        "shape": {"graph": "large", "edges": dg.m, "slots": m_pad,
+                  "rows": n_pad, "k": K_MAIN},
     })
     del out, ref, labels, part, dg
 
@@ -259,12 +302,17 @@ def main() -> None:
     g_small = make_rmat(1 << 14, 120_000, seed=3)
     parts = {}
     for device in ("cpu", "cuda"):
+        calls = native.ml_bipartition.calls
         t0 = time.perf_counter()
         parts[device] = kp.KaMinPar("default", device=device).set_graph(
             g_small).compute_partition(k=8, epsilon=0.03, seed=1)
-        print(json.dumps({"small_run": device,
+        calls = native.ml_bipartition.calls - calls
+        print(json.dumps({"small_run": device, "native_ip_calls": calls,
                           "wall_s": round(time.perf_counter() - t0, 3)}),
               flush=True)
+        if calls <= 0:
+            fail(f"n=2^14 on {device}: the native initial bipartitioner "
+                 "did not run")
     if not np.array_equal(parts["cpu"], parts["cuda"]):
         fail("n=2^14: CPU and CUDA partitions differ in "
              f"{int((parts['cpu'] != parts['cuda']).sum())} nodes")
@@ -275,9 +323,21 @@ def main() -> None:
                rating.best_from_slots)
     for fn in counted:
         fn.launches = 0
+    path_ms = {fn.__name__: {} for fn in counted}
     for name, n, m, seed in main_runs:
+        _native.EVENT_LOG = {}
+        native.ml_bipartition.calls = 0
         run_main(name, graphs[name][0], kp, counted, dev, metrics,
                  device_graph_from_host, torch)
+        torch.cuda.synchronize()
+        for fname, events in _native.EVENT_LOG.items():
+            path_ms[fname][name] = sum(a.elapsed_time(b) for a, b in events)
+        _native.EVENT_LOG = None
+        if native.ml_bipartition.calls <= 0:
+            fail(f"main path ({name}): the native initial bipartitioner "
+                 "did not run")
+        print(json.dumps({"native_ip": name, "calls":
+                          native.ml_bipartition.calls}), flush=True)
     launches = {fn.__name__: fn.launches for fn in counted}
     for fname, count in launches.items():
         if count <= 0:
@@ -285,6 +345,7 @@ def main() -> None:
 
     for entry in kernels:
         entry["launches"] = launches[entry["name"]]
+        entry["path_ms"] = path_ms[entry["name"]]
         entry["ok"] = True
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -292,10 +353,55 @@ def main() -> None:
         "count": torch.cuda.device_count()}}), flush=True)
 
 
+def check_k2_edge_cases(dg, gather, segments, rng, dev, torch) -> None:
+    """K2 against its twin where its design has edges: hub rows of 45k
+    edges cut over many blocks, a k beyond the shared-memory design, and a
+    delta round's compacted spans cut at the end of the buffer."""
+    deg = rng.integers(0, 24, 1 << 16)
+    deg[[7, 31_000, 65_000]] = (45_000, 44_904, 41_000)
+    deg[-4000:] = 0
+    row_ptr = np.concatenate([[0], np.cumsum(deg)]).astype(np.int32)
+    m = int(row_ptr[-1])
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(dev)
+    hub_spans = (t(row_ptr[:-1]), t(row_ptr[1:]))
+    hub_dst = t(rng.integers(0, 1 << 16, m + 1000))
+    hub_w = t(rng.integers(0, 4, m + 1000))
+    cases = []
+    for k in (2, 16, 256, 2048, 4096):
+        labels = t(rng.integers(-1, k + 1, 1 << 16))
+        cases.append((f"hub rows, k={k}",
+                      (*hub_spans, hub_dst, hub_w, labels, 1 << 16, k)))
+    # a delta round over 60% of the large graph's rows, in a buffer of a
+    # quarter of its slots (jet's and LP's delta size)
+    active = t(rng.random(dg.n_pad) < 0.6).bool()
+    num_slots = dg.m_pad // 4
+    _, _, edge_id, valid, start, end = segments.expand_active_rows(
+        dg.row_ptr, dg.degrees, active, num_slots)
+    if int(end.max()) <= num_slots:
+        fail("K2 delta case: the spans do not run past the buffer")
+    eid = edge_id.clamp(0, dg.m_pad - 1)
+    dst_b = torch.where(valid, dg.dst[eid], dg.n_pad - 1)
+    w_b = torch.where(valid, dg.edge_w[eid], 0)
+    labels = t(rng.integers(0, 16, dg.n_pad))
+    cases.append(("delta spans cut at the buffer",
+                  (start, end, dst_b, w_b, labels, dg.n_pad, 16)))
+    for what, args in cases:
+        ref = gather.dense_block_ratings_twin(*args)
+        for variant in gather.RATINGS_VARIANTS:
+            out = gather.dense_block_ratings(*args, variant)
+            torch.cuda.synchronize()
+            if not torch.equal(out, ref):
+                fail(f"K2 dense_block_ratings {variant} disagrees with its "
+                     f"twin: {what}")
+    print(json.dumps({"k2_edge_cases": [w for w, _ in cases]}), flush=True)
+
+
 def run_main(name, graph, kp, counted, dev, metrics, device_graph_from_host,
              torch) -> None:
     """Partition one graph through the public entry point and check the
     result; prints its cut, imbalance, walls and launches."""
+    from kaminpar_tpu_torch import _native
+
     before = {fn.__name__: fn.launches for fn in counted}
     solver = kp.KaMinPar("default", device="cuda").set_graph(graph)
     t0 = time.perf_counter()
@@ -316,7 +422,9 @@ def run_main(name, graph, kp, counted, dev, metrics, device_graph_from_host,
     part_pad = torch.zeros(full.n_pad, dtype=torch.int32, device=dev)
     part_pad[: graph.n] = torch.from_numpy(partition).to(dev)
     before_cut = {fn.__name__: fn.launches for fn in counted}
+    log, _native.EVENT_LOG = _native.EVENT_LOG, None
     cut_dev = int(metrics.edge_cut(full, part_pad))
+    _native.EVENT_LOG = log
     for fn in counted:  # the check's own gathers are not the path's
         fn.launches = before_cut[fn.__name__]
     src = graph.edge_sources()
@@ -328,6 +436,7 @@ def run_main(name, graph, kp, counted, dev, metrics, device_graph_from_host,
     perfect = -(-graph.total_node_weight // K_MAIN)
     print(json.dumps({
         "main_path": name, "n": graph.n, "m": graph.m, "k": K_MAIN,
+        "ip_s": solver.last_timings.get("initial-partitioning"),
         "cut": cut_host, "imbalance": float(bw.max() / perfect - 1.0),
         "gate": solver.last_gate,
         "wall_s": wall, "phase_s": solver.last_timings,

@@ -20,8 +20,9 @@ import os
 import shutil
 import subprocess
 import time
+from contextlib import contextmanager
 from pathlib import Path
-from typing import Dict
+from typing import Dict, List, Optional
 
 PACKAGE_DIR = Path(__file__).resolve().parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
@@ -33,6 +34,11 @@ NVCC_FLAGS = (
 )
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
+_FUNCS: Dict[tuple, ctypes._CFuncPtr] = {}
+
+# a dict here makes every kernel launch record a pair of CUDA events under
+# its kernel's name (chip_smoke.py sums them per cell); None records nothing
+EVENT_LOG: Optional[Dict[str, List[tuple]]] = None
 
 
 def _nvcc() -> str:
@@ -97,10 +103,16 @@ def library(source: str) -> ctypes.CDLL:
     return lib
 
 
-def bind(source: str, symbol: str, argtypes) -> ctypes._CFuncPtr:
-    fn = getattr(library(source), symbol)
-    fn.argtypes = list(argtypes)
-    fn.restype = ctypes.c_int
+def bind(source: str, symbol: str, argtypes,
+         restype=ctypes.c_int) -> ctypes._CFuncPtr:
+    """The C entry point `symbol` of `source`, typed once and cached (a
+    launch pays no lookup)."""
+    fn = _FUNCS.get((source, symbol))
+    if fn is None:
+        fn = getattr(library(source), symbol)
+        fn.argtypes = list(argtypes)
+        fn.restype = restype
+        _FUNCS[(source, symbol)] = fn
     return fn
 
 
@@ -108,3 +120,20 @@ def check(code: int, what: str) -> None:
     """Raise when a C entry point reported a CUDA error."""
     if code != 0:
         raise RuntimeError(f"{what}: CUDA error {code} at launch")
+
+
+@contextmanager
+def timed(name: str):
+    """Record CUDA events around one launch when EVENT_LOG is set."""
+    log = EVENT_LOG
+    if log is None:
+        yield
+        return
+    import torch
+
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    yield
+    end.record()
+    log.setdefault(name, []).append((start, end))

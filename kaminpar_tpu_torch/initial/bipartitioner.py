@@ -10,9 +10,9 @@ Analog of kaminpar-shm/initial_partitioning/:
     and adaptively disables bipartitioners whose running score is worst
     (use_adaptive_bipartitioner_selection).
 
-Own copy of the JAX package's numpy path (kaminpar_tpu/initial/), which is
-the behavioral spec of its native engine; the native C++ bipartitioner is
-not part of this package yet.
+Own copy of the JAX package's bipartitioner (kaminpar_tpu/initial/): the
+native C++ engine (native/ip.cpp) runs by default, and the numpy path
+below is its behavioral spec and the path under KAMINPAR_TPU_NO_NATIVE_IP=1.
 """
 
 from __future__ import annotations
@@ -22,6 +22,7 @@ from typing import Callable, List, Optional, Tuple
 
 import numpy as np
 
+from .. import native
 from ..context import InitialPartitioningContext, InitialPoolContext
 from ..graphs.host import HostGraph
 from .coarsening import coarsen_for_bipartition
@@ -136,10 +137,19 @@ class InitialMultilevelBipartitioner:
         rng: np.random.Generator,
     ) -> np.ndarray:
         """Coarsen -> flat pool bipartition -> uncoarsen with FM refinement.
-        Returns int8 partition of `graph`."""
+        Returns int8 partition of `graph`.
+
+        Runs the native bipartitioner unless it is switched off or there
+        is no g++ (native.enabled); the choice is made BEFORE the seed is
+        drawn, so the numpy path sees the same rng stream either way."""
         if graph.n == 0:
             return np.zeros(0, dtype=np.int8)
         max_block_weights = np.asarray(max_block_weights, dtype=np.int64)
+        if native.enabled():
+            seed = int(rng.integers(0, 2**62))
+            return native.ml_bipartition(
+                graph, max_block_weights, self.ctx, seed=seed
+            )
         levels = coarsen_for_bipartition(
             graph,
             self.ctx.coarsening,

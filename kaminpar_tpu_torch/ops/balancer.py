@@ -71,7 +71,8 @@ def overload_balance_round(
     if k <= BALANCER_DENSE_MAX_K:
         if conn is None:
             conn = dense_block_ratings(
-                graph.src, graph.dst, graph.edge_w, part, n_pad, k
+                graph.row_ptr[:-1], graph.row_ptr[1:], graph.dst,
+                graph.edge_w, part, n_pad, k,
             )
         best, best_w, w_own = best_from_dense(conn, part, bw, node_w, cap,
                                               salt)
@@ -157,7 +158,8 @@ def underload_balance_round(
     surplus = (bw - mins).clamp(min=0)
     if k <= BALANCER_DENSE_MAX_K:
         conn = dense_block_ratings(
-            graph.src, graph.dst, graph.edge_w, part, n_pad, k
+            graph.row_ptr[:-1], graph.row_ptr[1:], graph.dst, graph.edge_w,
+            part, n_pad, k,
         )
         best, best_w, _ = best_from_dense(
             conn, part, bw, node_w, bw, salt,

@@ -8,9 +8,11 @@ here work in edge order:
 
   * K1 `gather_i32(table, idx)`: out[e] = table[idx[e]] — every
     level-wide labels[dst], part[dst] and cmap[dst] on the path;
-  * K2 `dense_block_ratings(src, dst, w, labels, n_pad, k)`: the fused
-    block lookup + accumulation of an (n_pad, k) connection table that
-    `routed_block_ratings` and `segments.dense_block_ratings` compute.
+  * K2 `dense_block_ratings(row_start, row_end, dst, w, labels, n_pad,
+    k)`: the fused block lookup + accumulation of an (n_pad, k)
+    connection table that `routed_block_ratings` and
+    `segments.dense_block_ratings` compute; each row's edges are its CSR
+    span, so the kernel reads no per-edge source.
 
 Each wrapper takes its plain torch twin only for CPU tensors; on a CUDA
 tensor it launches the hand-written kernel (csrc/) or raises.  `launches`
@@ -32,6 +34,22 @@ DEBUG_ENV = "KAMINPAR_TPU_TORCH_DEBUG"
 
 _VP = ctypes.c_void_p
 _LL = ctypes.c_longlong
+
+# K1's launch shape: (mode, unroll, blocks of 256 threads per SM,
+# evict-first hints on the streams), mode 0 taking `unroll` 4-byte indices
+# per thread and step, mode 1 `unroll` 16-byte index vectors
+# (csrc/gather.cu); chip_smoke.py times them all
+GATHER_VARIANT = (0, 2, 64, 0)
+GATHER_VARIANTS = tuple((mode, u, b, h) for mode in (0, 1) for u in (1, 2, 4)
+                        for b in (32, 64) for h in (0, 1))
+# K2's launch shape: (slots in flight per thread, units of work per
+# block, evict-first hints on dst and w); chip_smoke.py times the
+# alternatives.  The kernel indexes slots in int32, with a block's step of
+# headroom.
+RATINGS_VARIANT = (16, 4096, 0)
+RATINGS_VARIANTS = tuple((u, c, h) for u in (8, 16) for c in (2048, 4096)
+                         for h in (0, 1))
+MAX_RATING_SLOTS = (1 << 31) - (1 << 16)
 
 
 def _stream() -> int:
@@ -58,9 +76,12 @@ def gather_i32_twin(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return table[idx]
 
 
-def gather_i32(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+def gather_i32(table: torch.Tensor, idx: torch.Tensor,
+               variant: tuple[int, ...] | None = None) -> torch.Tensor:
     """out[e] = table[idx[e]] (int32, edge order).  Indices must lie in
-    [0, len(table)): callers clip exactly where the JAX package clips."""
+    [0, len(table)): callers clip exactly where the JAX package clips.
+    `variant` = (mode, unroll, blocks per SM, stream hints) picks the
+    launch shape (default GATHER_VARIANT)."""
     if table.device.type == "cpu":
         return gather_i32_twin(table, idx)
     table = table.contiguous()
@@ -73,12 +94,17 @@ def gather_i32(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
                 f"gather_i32: index range [{lo}, {hi}] outside "
                 f"[0, {table.numel()})"
             )
+    mode, unroll, blocks_per_sm, hints = variant or GATHER_VARIANT
     out = torch.empty(idx.shape, dtype=torch.int32, device=idx.device)
     fn = _native.bind(
-        "gather.cu", "kp_gather_i32", (_VP, _VP, _VP, _LL, _VP)
+        "gather.cu", "kp_gather_i32",
+        (_VP, _VP, _VP, _LL, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+         ctypes.c_int, _VP),
     )
-    code = fn(table.data_ptr(), idx.data_ptr(), out.data_ptr(),
-              idx.numel(), _stream())
+    with _native.timed("gather_i32"):
+        code = fn(table.data_ptr(), idx.data_ptr(), out.data_ptr(),
+                  idx.numel(), mode, unroll, blocks_per_sm, hints,
+                  _stream())
     _native.check(code, "gather_i32")
     gather_i32.launches += 1
     return out
@@ -93,51 +119,87 @@ gather_i32.launches = 0
 
 
 def dense_block_ratings_twin(
-    src: torch.Tensor,
+    row_start: torch.Tensor,
+    row_end: torch.Tensor,
     dst: torch.Tensor,
     edge_w: torch.Tensor,
     labels: torch.Tensor,
     n_pad: int,
     num_blocks: int,
 ) -> torch.Tensor:
-    """Plain torch version of K2 (segments.dense_block_ratings)."""
+    """Plain torch version of K2 (segments.dense_block_ratings): each
+    slot's row comes from the clipped spans."""
+    slots = dst.shape[0]
+    end = row_end.to(torch.int64).clamp(0, slots)
+    start = torch.minimum(row_start.to(torch.int64).clamp(0, slots), end)
+    length = end - start
+    dev = dst.device
+    rows = torch.repeat_interleave(
+        torch.arange(n_pad, dtype=torch.int64, device=dev), length
+    )
+    first = torch.cumsum(length, 0) - length
+    slot = torch.arange(rows.shape[0], dtype=torch.int64, device=dev) + (
+        start - first
+    )[rows]
     lab_c = labels.clamp(0, num_blocks - 1)
-    flat = src.to(torch.int64) * num_blocks + lab_c[dst].to(torch.int64)
-    conn = torch.zeros(n_pad * num_blocks, dtype=torch.int32,
-                       device=src.device)
-    conn.index_add_(0, flat, edge_w.to(torch.int32))
+    flat = rows * num_blocks + lab_c[dst[slot]].to(torch.int64)
+    conn = torch.zeros(n_pad * num_blocks, dtype=torch.int32, device=dev)
+    conn.index_add_(0, flat, edge_w[slot].to(torch.int32))
     return conn.view(n_pad, num_blocks)
 
 
 def dense_block_ratings(
-    src: torch.Tensor,
+    row_start: torch.Tensor,
+    row_end: torch.Tensor,
     dst: torch.Tensor,
     edge_w: torch.Tensor,
     labels: torch.Tensor,
     n_pad: int,
     num_blocks: int,
+    variant: tuple[int, int, int] | None = None,
 ) -> torch.Tensor:
-    """Exact (n_pad, k) connection table: conn[src[e], clip(labels[dst[e]],
-    0, k-1)] += edge_w[e]."""
-    if src.device.type == "cpu":
+    """Exact (n_pad, k) connection table: conn[u, clip(labels[dst[e]], 0,
+    k-1)] += edge_w[e] over the slots e of row u's span [row_start[u],
+    row_end[u]), clipped to [0, len(dst)).  The spans are in row order and
+    do not overlap (CSR offsets, or expand_active_rows' start and end).
+    `variant` = (slots in flight per thread, units of work per block,
+    stream hints) picks the launch shape (default RATINGS_VARIANT)."""
+    if dst.device.type == "cpu":
         return dense_block_ratings_twin(
-            src, dst, edge_w, labels, n_pad, num_blocks
+            row_start, row_end, dst, edge_w, labels, n_pad, num_blocks
         )
-    src, dst, edge_w, labels = (
-        t.contiguous() for t in (src, dst, edge_w, labels)
+    row_start, row_end, dst, edge_w, labels = (
+        t.contiguous() for t in (row_start, row_end, dst, edge_w, labels)
     )
-    _require_i32_on(src.device, src, dst, edge_w, labels)
-    if not (src.shape == dst.shape == edge_w.shape):
-        raise ValueError("src, dst and edge_w must have one shape")
-    conn = torch.zeros((n_pad, num_blocks), dtype=torch.int32,
-                       device=src.device)
+    _require_i32_on(dst.device, row_start, row_end, dst, edge_w, labels)
+    if dst.shape != edge_w.shape:
+        raise ValueError("dst and edge_w must have one shape")
+    if not (row_start.shape == row_end.shape == labels.shape == (n_pad,)):
+        raise ValueError("row_start, row_end and labels must have n_pad "
+                         "entries")
+    slots = dst.numel()
+    if slots > MAX_RATING_SLOTS:
+        raise ValueError(f"dense_block_ratings: {slots} slots exceed the "
+                         f"kernel's int32 slot index")
+    unroll, cost, hints = variant or RATINGS_VARIANT
+    blocks = _native.bind(
+        "dense_ratings.cu", "kp_dense_block_ratings_blocks",
+        (_LL, _LL, ctypes.c_int, _LL), restype=_LL,
+    )(n_pad, slots, int(num_blocks), cost)
+    conn = torch.empty((n_pad, num_blocks), dtype=torch.int32,
+                       device=dst.device)
+    plan = torch.empty(2 * (blocks + 1), dtype=torch.int32,
+                       device=dst.device)
     fn = _native.bind(
         "dense_ratings.cu", "kp_dense_block_ratings",
-        (_VP, _VP, _VP, _VP, _VP, _LL, ctypes.c_int, _VP),
+        (_VP, _VP, _VP, _VP, _VP, _VP, _VP, _LL, _LL, ctypes.c_int, _LL,
+         _LL, ctypes.c_int, ctypes.c_int, _VP),
     )
-    code = fn(src.data_ptr(), dst.data_ptr(), edge_w.data_ptr(),
-              labels.data_ptr(), conn.data_ptr(), src.numel(),
-              int(num_blocks), _stream())
+    with _native.timed("dense_block_ratings"):
+        code = fn(row_start.data_ptr(), row_end.data_ptr(), dst.data_ptr(),
+                  edge_w.data_ptr(), labels.data_ptr(), conn.data_ptr(),
+                  plan.data_ptr(), n_pad, slots, int(num_blocks), cost,
+                  blocks, unroll, hints, _stream())
     _native.check(code, "dense_block_ratings")
     dense_block_ratings.launches += 1
     return conn

@@ -53,7 +53,8 @@ def _delta_slots(graph: DeviceGraph) -> int | None:
 
 def _full_ratings(graph: DeviceGraph, part: torch.Tensor, k: int):
     return dense_block_ratings(
-        graph.src, graph.dst, graph.edge_w, part, graph.n_pad, k
+        graph.row_ptr[:-1], graph.row_ptr[1:], graph.dst, graph.edge_w,
+        part, graph.n_pad, k,
     )
 
 

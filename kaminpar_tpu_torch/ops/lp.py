@@ -232,7 +232,7 @@ def lp_round(
         best = torch.where(barred, -1, best)
         best_w = torch.where(barred, INT32_MIN, best_w)
     elif engine == "dense":
-        conn = dense_block_ratings(owner_c, dst_b, w_b, labels, n_pad, C)
+        conn = dense_block_ratings(start, end, dst_b, w_b, labels, n_pad, C)
         best, best_w, w_cur = best_from_dense(
             conn, labels, cluster_weights, node_w, cap, salt,
             communities=communities,

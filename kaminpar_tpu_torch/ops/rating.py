@@ -250,13 +250,14 @@ def best_from_slots(
         (vp, vp, vp, vp, vp, vp, vp, vp, vp, ctypes.c_longlong, c_int,
          c_int, ctypes.c_uint, c_int, vp),
     )
-    code = fn(
-        slot_label.data_ptr(), slot_w.data_ptr(), labels.data_ptr(),
-        cluster_weights.data_ptr(), node_w.data_ptr(), cap.data_ptr(),
-        best.data_ptr(), best_w.data_ptr(), w_own.data_ptr(),
-        n_pad, S, C, int(tie_salt) & 0xFFFFFFFF, int(bool(require_fit)),
-        _stream(),
-    )
+    with _native.timed("best_from_slots"):
+        code = fn(
+            slot_label.data_ptr(), slot_w.data_ptr(), labels.data_ptr(),
+            cluster_weights.data_ptr(), node_w.data_ptr(), cap.data_ptr(),
+            best.data_ptr(), best_w.data_ptr(), w_own.data_ptr(),
+            n_pad, S, C, int(tie_salt) & 0xFFFFFFFF, int(bool(require_fit)),
+            _stream(),
+        )
     _native.check(code, "best_from_slots")
     best_from_slots.launches += 1
     return best, best_w, w_own

@@ -2,9 +2,9 @@
 device="cpu") returns the partition of kaminpar_tpu.KaMinPar("default"),
 bitwise, for the same graph and seed.
 
-Both sides run the numpy initial bipartitioner (KAMINPAR_TPU_NO_NATIVE_IP=1
-selects it in the JAX package; the port has only that one), with the
-contraction limit at 160 so these small graphs coarsen through several
+Both sides run the same initial bipartitioner: the native one by default,
+the numpy one under KAMINPAR_TPU_NO_NATIVE_IP=1 (each case runs both), with
+the contraction limit at 160 so these small graphs coarsen through several
 levels.  This file takes the host extension path (levels below the
 device-extension size read the level back and extract blocks with numpy)
 with the device bipartition pipeline lowered to blocks of 64 nodes;
@@ -20,6 +20,7 @@ import pytest
 import kaminpar_tpu as kt
 import kaminpar_tpu_torch as kp
 from kaminpar_tpu.graphs import factories as jfactories
+from kaminpar_tpu_torch import native
 
 CASES = {
     "rmat-k8": (lambda: jfactories.make_rmat(1 << 12, 30_000, seed=3), 8),
@@ -60,6 +61,20 @@ def test_default_path_bitwise_equal(case, monkeypatch):
     assert tpart.dtype == np.int32
     assert tpart.shape == (host.n,)
     assert tpart.min() >= 0 and tpart.max() < k
+    np.testing.assert_array_equal(jpart, tpart)
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_default_path_bitwise_equal_with_native_ip(case, monkeypatch):
+    """The default path as users get it: the JAX package runs its native
+    initial bipartitioner, and so does the port."""
+    monkeypatch.delenv("KAMINPAR_TPU_NO_NATIVE_IP", raising=False)
+    make, k = CASES[case]
+    host = make()
+    jax.clear_caches()
+    before = native.ml_bipartition.calls
+    jpart, tpart = run_both(host, k, device_bipartition_threshold=64)
+    assert native.ml_bipartition.calls > before
     np.testing.assert_array_equal(jpart, tpart)
 
 

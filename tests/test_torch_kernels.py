@@ -25,6 +25,7 @@ from kaminpar_tpu_torch.convert import (
     labels_from_numpy,
 )
 from kaminpar_tpu_torch.ops import gather, rating
+from kaminpar_tpu_torch.ops import segments as T
 
 I32_MIN = np.iinfo(np.int32).min
 
@@ -111,6 +112,10 @@ def test_k1_on_level_dst(graphs):
 # ---------------------------------------------------------------- K2
 
 
+def _spans(tg):
+    return tg.row_ptr[:-1], tg.row_ptr[1:]
+
+
 @pytest.mark.parametrize("k", [2, 16, 256])
 def test_k2_matches_routed_and_segment_ratings(graphs, routed, k):
     jg, tg = graphs
@@ -125,12 +130,47 @@ def test_k2_matches_routed_and_segment_ratings(graphs, routed, k):
                                              k))
     before = gather.dense_block_ratings.launches
     out = gather.dense_block_ratings(
-        tg.src, tg.dst, tg.edge_w, labels_from_numpy(labels, "cpu"),
+        *_spans(tg), tg.dst, tg.edge_w, labels_from_numpy(labels, "cpu"),
         tg.n_pad, k,
     ).numpy()
     assert gather.dense_block_ratings.launches == before
     assert out.shape == (tg.n_pad, k)
     np.testing.assert_array_equal(jr, out)
+    np.testing.assert_array_equal(js, out)
+
+
+@pytest.mark.parametrize("k", [4, 64])
+@pytest.mark.parametrize("slot_share", [0.3, 1.5])
+def test_k2_delta_round_spans_cut_at_the_buffer(graphs, k, slot_share):
+    """A delta round's compacted rows: the spans of expand_active_rows run
+    past the buffer when the active rows hold more slots than it has, and
+    the twin, reading only the clipped spans, still gives the JAX table
+    built from the slots' owners."""
+    jg, tg = graphs
+    rng = np.random.default_rng(int(slot_share * 10) + k)
+    active = rng.random(tg.n_pad) < 0.4
+    degrees = np.diff(np.asarray(jg.row_ptr))
+    num_slots = max(1, int(slot_share * degrees[active].sum()))
+    rows = jseg.expand_active_rows(jg.row_ptr, jnp.asarray(degrees),
+                                   jnp.asarray(active), num_slots)
+    owner_c, _, edge_id, valid, start, end = (np.asarray(a) for a in rows)
+    if slot_share < 1:
+        assert end.max() > num_slots  # spans run past the buffer
+    eid = np.clip(edge_id, 0, tg.m_pad - 1)
+    dst_b = np.where(valid, np.asarray(jg.dst)[eid], tg.n_pad - 1)
+    w_b = np.where(valid, np.asarray(jg.edge_w)[eid], 0)
+    labels = rng.integers(-1, k + 1, tg.n_pad).astype(np.int32)
+    js = np.asarray(jseg.dense_block_ratings(
+        jnp.asarray(owner_c), jnp.asarray(dst_b), jnp.asarray(w_b),
+        jnp.asarray(labels), tg.n_pad, k,
+    ))
+    port_rows = T.expand_active_rows(tg.row_ptr, tg.degrees, tt(active),
+                                     num_slots)
+    np.testing.assert_array_equal(port_rows[4].numpy(), start)
+    out = gather.dense_block_ratings(
+        tt(start), tt(end), tt(dst_b.astype(np.int32)),
+        tt(w_b.astype(np.int32)), tt(labels), tg.n_pad, k,
+    ).numpy()
     np.testing.assert_array_equal(js, out)
 
 
@@ -277,7 +317,10 @@ def test_wrappers_never_take_the_twin_off_cpu(monkeypatch):
     with pytest.raises(_KernelPathTaken):
         gather.gather_i32(meta, meta)
     with pytest.raises(_KernelPathTaken):
-        gather.dense_block_ratings(meta, meta, meta, meta, 512, 4)
+        gather.dense_block_ratings(meta, meta, meta, meta, meta, 512, 4)
+    with pytest.raises(ValueError):  # spans must have one entry per row
+        gather.dense_block_ratings(meta[:8], meta[:8], meta, meta, meta,
+                                   512, 4)
     slots = torch.zeros((512, 64), dtype=torch.int32, device="meta")
     with pytest.raises(_KernelPathTaken):
         rating.best_from_slots(slots, slots, meta, meta, meta, meta, 1)
@@ -319,12 +362,37 @@ def test_kernels_match_twins_on_card():
     )
     gen = np.random.default_rng(0)
     labels = labels_from_numpy(gen.integers(0, g.n_pad, g.n_pad), dev)
-    assert torch.equal(gather.gather_i32(labels, g.dst),
-                       gather.gather_i32_twin(labels, g.dst))
+    for variant in gather.GATHER_VARIANTS:
+        assert torch.equal(gather.gather_i32(labels, g.dst, variant),
+                           gather.gather_i32_twin(labels, g.dst))
+    # an odd length at every offset from a 16-byte boundary
+    for off in range(4):
+        idx = g.dst[off: off + 10_001]
+        for variant in gather.GATHER_VARIANTS:
+            assert torch.equal(gather.gather_i32(labels, idx, variant),
+                               gather.gather_i32_twin(labels, idx))
     part = labels_from_numpy(gen.integers(-1, 17, g.n_pad), dev)
-    args = (g.src, g.dst, g.edge_w, part, g.n_pad, 16)
+    spans = (g.row_ptr[:-1], g.row_ptr[1:])
+    args = (*spans, g.dst, g.edge_w, part, g.n_pad, 16)
     assert torch.equal(gather.dense_block_ratings(*args),
                        gather.dense_block_ratings_twin(*args))
+    # a hub row of 45k edges beside short rows, at k inside and beyond the
+    # shared-memory design (k <= 2048), with n_pad * k within 2^28
+    deg = gen.integers(0, 8, 4096)
+    deg[5], deg[3000] = 45_000, 41_000
+    deg[-100:] = 0
+    row_ptr = np.concatenate([[0], np.cumsum(deg)]).astype(np.int32)
+    m = int(row_ptr[-1])
+    hub_dst = labels_from_numpy(gen.integers(0, 4096, m + 77), dev)
+    hub_w = labels_from_numpy(gen.integers(0, 5, m + 77), dev)
+    hub_spans = tuple(labels_from_numpy(a, dev)
+                      for a in (row_ptr[:-1], row_ptr[1:]))
+    for k in (2, 16, 256, 2048, 4096):
+        lab = labels_from_numpy(gen.integers(-1, k + 1, 4096), dev)
+        hub = (*hub_spans, hub_dst, hub_w, lab, 4096, k)
+        for variant in gather.RATINGS_VARIANTS:
+            assert torch.equal(gather.dense_block_ratings(*hub, variant),
+                               gather.dense_block_ratings_twin(*hub))
     nb = gather.gather_i32(labels, g.dst)
     sl, sw, _ = rating.scatter_slot_ratings(g.src, nb, g.edge_w, g.n_pad,
                                             32, 7)

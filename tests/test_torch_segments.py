@@ -228,8 +228,8 @@ def test_dense_block_ratings_and_best_from_dense(graphs, k):
     part[-5:] = [-1, k, k + 3, -7, 0]  # out-of-range labels are clipped
     jconn = J.dense_block_ratings(jg.src, jg.dst, jg.edge_w,
                                   jnp.asarray(part), jg.n_pad, k)
-    tconn = T.dense_block_ratings(tg.src, tg.dst, tg.edge_w, tt(part),
-                                  tg.n_pad, k)
+    tconn = T.dense_block_ratings(tg.row_ptr[:-1], tg.row_ptr[1:], tg.dst,
+                                  tg.edge_w, tt(part), tg.n_pad, k)
     assert_same(jconn, tconn)
     part_c = np.clip(part, 0, k - 1)
     bw = np.bincount(part_c, np.asarray(jg.node_w), k).astype(np.int32)
