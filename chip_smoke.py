@@ -11,11 +11,10 @@ Phases, each fatal on failure:
   3. run every kernel at the shapes the main path gives it, hold it
      bitwise against its plain torch twin on the same CUDA tensors, and
      time kernel, twin and (where one exists) a single PyTorch library
-     call; K1 is also timed in every launch shape of
-     gather.GATHER_VARIANTS, and K1 and K2 are held against their twins
-     on edge cases (an odd-length index view at every offset, hub rows of
-     45k edges, a k beyond K2's shared-memory design, delta-round spans
-     cut at the buffer);
+     call; K1 and K2 are also held against their twins on edge cases (an
+     odd-length index view at every offset from a 16-byte boundary, hub
+     rows of 45k edges, a k beyond K2's shared-memory design, delta-round
+     spans cut at the buffer);
   4. partition make_rmat(1<<14, 120_000, seed=3) at k=8 on the CPU and on
      the card: the two partitions must be bitwise equal, and both must
      have run the native initial bipartitioner;
@@ -160,24 +159,12 @@ def main() -> None:
     torch.cuda.synchronize()
     if not torch.equal(out, ref):
         fail("K1 gather_i32 disagrees with its twin")
-    # every launch shape at the main path's shape, and an odd-length view
-    # at every offset from a 16-byte boundary
-    sweep = []
-    for variant in gather.GATHER_VARIANTS:
-        if not torch.equal(gather.gather_i32(labels, dg.dst, variant), ref):
-            fail(f"K1 gather_i32 {variant} disagrees with its twin")
-        sweep.append({"variant": list(variant), "ms": time_ms(
-            lambda v=variant: gather.gather_i32(labels, dg.dst, v), torch)})
+    # an odd-length view at every offset from a 16-byte boundary
     for off in range(4):
         view = dg.dst[off: off + 1_000_001]
-        ref_view = gather.gather_i32_twin(labels, view)
-        for variant in gather.GATHER_VARIANTS:
-            if not torch.equal(gather.gather_i32(labels, view, variant),
-                               ref_view):
-                fail(f"K1 gather_i32 {variant} disagrees on a view at "
-                     f"offset {off}")
-    print(json.dumps({"k1_sweep": sweep, "default": list(
-        gather.GATHER_VARIANT)}), flush=True)
+        if not torch.equal(gather.gather_i32(labels, view),
+                           gather.gather_i32_twin(labels, view)):
+            fail(f"K1 gather_i32 disagrees on a view at offset {off}")
     b, by = bound_ms(4 * m_pad + 4 * n_pad + 4 * m_pad, 0)
     kernels.append({
         "name": "gather_i32", "route": "cuda",
@@ -199,14 +186,6 @@ def main() -> None:
     torch.cuda.synchronize()
     if not torch.equal(out, ref):
         fail("K2 dense_block_ratings disagrees with its twin")
-    k2_sweep = []
-    for variant in gather.RATINGS_VARIANTS:
-        if not torch.equal(gather.dense_block_ratings(*args2, variant), ref):
-            fail(f"K2 dense_block_ratings {variant} disagrees with its twin")
-        k2_sweep.append({"variant": list(variant), "ms": time_ms(
-            lambda v=variant: gather.dense_block_ratings(*args2, v), torch)})
-    print(json.dumps({"k2_sweep": k2_sweep, "default": list(
-        gather.RATINGS_VARIANT)}), flush=True)
     check_k2_edge_cases(dg, gather, segments, rng, dev, torch)
 
     def library_k2():
@@ -387,12 +366,10 @@ def check_k2_edge_cases(dg, gather, segments, rng, dev, torch) -> None:
                   (start, end, dst_b, w_b, labels, dg.n_pad, 16)))
     for what, args in cases:
         ref = gather.dense_block_ratings_twin(*args)
-        for variant in gather.RATINGS_VARIANTS:
-            out = gather.dense_block_ratings(*args, variant)
-            torch.cuda.synchronize()
-            if not torch.equal(out, ref):
-                fail(f"K2 dense_block_ratings {variant} disagrees with its "
-                     f"twin: {what}")
+        out = gather.dense_block_ratings(*args)
+        torch.cuda.synchronize()
+        if not torch.equal(out, ref):
+            fail(f"K2 dense_block_ratings disagrees with its twin: {what}")
     print(json.dumps({"k2_edge_cases": [w for w, _ in cases]}), flush=True)
 
 

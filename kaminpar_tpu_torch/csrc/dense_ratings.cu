@@ -20,9 +20,9 @@
 // Design.  The work of a call is a merge path over rows and slots (the
 // CSR merge-based decomposition of Merrill and Garland): a row costs
 // RC = max(k, 8) units (its k counters are zeroed and stored), a slot one
-// unit, and block c takes the units [c D, (c+1) D) (D is a launch
-// parameter, 4096 by default).  So every block has at most about D slots
-// and ceil(D / RC) + 1 rows, whatever the degree skew: a hub row of 45k
+// unit, and block c takes the units [c D, (c+1) D) (D = kCost = 4096).
+// So every block has at most about D slots and ceil(D / RC) + 1 rows,
+// whatever the degree skew: a hub row of 45k
 // edges is cut over a dozen blocks, and a run of empty padding rows is
 // cut the same way.  plan_kernel finds each block's first row and
 // first slot by a binary search over the clipped ends.  The block keeps
@@ -31,9 +31,11 @@
 // owns once, coalesced, zeros included: there is no memset of the table.
 // A row cut by a block boundary is the exception: plan_kernel zeroes it,
 // and every block that holds part of it adds its partial counters with
-// global atomics, so the blocks meet exactly.  dst and w are streamed
-// either through the read-only path or with evict-first loads (__ldcs)
-// meant to keep the labels in L2: a launch choice.
+// global atomics, so the blocks meet exactly.  dst and w are read
+// through the read-only path, kUnroll = 16 slots in flight per thread;
+// evict-first loads of them (meant to keep the labels in L2) and other
+// values of D and kUnroll changed the time by under 10% on the H100
+// (PERF.md), so they are fixed.
 //
 // Large k: a block's rows hold fewer than D + 2 RC counters, which fit
 // shared memory for k <= 2048.  Above that, the table is zeroed with
@@ -48,6 +50,8 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kMaxSharedK = 2048;      // largest k kept in shared memory
 constexpr int kMinRowCost = 8;
+constexpr long long kCost = 4096;      // units of work per block (D)
+constexpr int kUnroll = 16;            // slots in flight per thread
 
 __host__ __device__ inline long long row_cost(int k) {
   return k <= kMaxSharedK ? (k > kMinRowCost ? k : kMinRowCost)
@@ -55,14 +59,12 @@ __host__ __device__ inline long long row_cost(int k) {
 }
 
 // most rows a block can touch, rounded up to whole 16-byte vectors
-__host__ __device__ inline int max_rows(long long cost) {
-  return (int)((cost / kMinRowCost + 2 + 3) / 4 * 4);
-}
+constexpr int kMaxRows = (int)((kCost / kMinRowCost + 2 + 3) / 4 * 4);
 
 // counters of a block's rows, rounded up to whole 16-byte vectors
-__host__ __device__ inline int counter_ints(int k, long long cost) {
+inline int counter_ints(int k) {
   long long rc = row_cost(k);
-  long long rows = (cost + rc - 1) / rc + 1;
+  long long rows = (kCost + rc - 1) / rc + 1;
   return (int)((rows * k + 3) / 4 * 4);
 }
 
@@ -100,12 +102,11 @@ __global__ void plan_kernel(const int32_t* __restrict__ start,
                             const int32_t* __restrict__ end,
                             int32_t* __restrict__ conn, int32_t* plan,
                             long long n, long long S, int k, long long rc,
-                            long long cost, long long nblocks,
-                            bool zero_cut) {
+                            long long nblocks, bool zero_cut) {
   long long c = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (c > nblocks) return;
   long long i, j;
-  split_at(end, n, S, rc, c * cost, &i, &j);
+  split_at(end, n, S, rc, c * kCost, &i, &j);
   plan[c] = (int32_t)i;
   plan[nblocks + 1 + c] = (int32_t)j;
   if (zero_cut && i < n) {
@@ -117,49 +118,42 @@ __global__ void plan_kernel(const int32_t* __restrict__ start,
   }
 }
 
-// dst and w: evict-first (kStream) or default caching
-template <bool kStream>
-__device__ __forceinline__ int32_t load_stream(const int32_t* p) {
-  return kStream ? __ldcs(p) : __ldg(p);
-}
-
-// One batch of a block's slots: U per thread, neighbouring threads on
-// neighbouring slots.  Each weight, and each label of a slot with a
+// One batch of a block's slots: kUnroll per thread, neighbouring threads
+// on neighbouring slots.  Each weight, and each label of a slot with a
 // weight, the index clamped into the table.
-template <int U, bool kStream>
 __device__ __forceinline__ void load_batch(
     const int32_t* __restrict__ dst, const int32_t* __restrict__ w,
     const int32_t* __restrict__ labels, int base, int j1, int n,
-    int32_t (&we)[U], int32_t (&lab)[U]) {
-  int32_t d[U];
+    int32_t (&we)[kUnroll], int32_t (&lab)[kUnroll]) {
+  int32_t d[kUnroll];
 #pragma unroll
-  for (int u = 0; u < U; ++u) {
+  for (int u = 0; u < kUnroll; ++u) {
     int j = base + u * kThreads + threadIdx.x;
     bool in = j < j1;
-    we[u] = in ? load_stream<kStream>(w + j) : 0;
-    d[u] = in ? load_stream<kStream>(dst + j) : 0;
+    we[u] = in ? __ldg(w + j) : 0;
+    d[u] = in ? __ldg(dst + j) : 0;
   }
 #pragma unroll
-  for (int u = 0; u < U; ++u) {
+  for (int u = 0; u < kUnroll; ++u) {
     int dc = d[u] < 0 ? 0 : (d[u] >= n ? n - 1 : d[u]);
     lab[u] = we[u] != 0 ? __ldg(labels + dc) : 0;
   }
 }
 
-// Shared memory: the spans of the block's rows (rows_cap each), then
+// Shared memory: the spans of the block's rows (kMaxRows each), then
 // (kShared) their counters.
-template <bool kShared, int U, bool kStream>
+template <bool kShared>
 __global__ void __launch_bounds__(kThreads)
 ratings_kernel(const int32_t* __restrict__ start,
                const int32_t* __restrict__ end,
                const int32_t* __restrict__ dst, const int32_t* __restrict__ w,
                const int32_t* __restrict__ labels, int32_t* __restrict__ conn,
                const int32_t* __restrict__ plan, int n, int S, int k,
-               int nblocks, int rows_cap) {
+               int nblocks) {
   extern __shared__ int4 smem[];
   int32_t* row_s = reinterpret_cast<int32_t*>(smem);
-  int32_t* row_e = row_s + rows_cap;
-  int32_t* counters = row_e + rows_cap;
+  int32_t* row_e = row_s + kMaxRows;
+  int32_t* counters = row_e + kMaxRows;
 
   const int c = blockIdx.x;
   const int i0 = plan[c], i1 = plan[c + 1];
@@ -169,14 +163,14 @@ ratings_kernel(const int32_t* __restrict__ start,
   const int last = i1 < n ? i1 : n - 1;
   const int nr = last - i0 + 1;
 
-  // the block's slots, U in flight per thread; neighbouring threads take
-  // neighbouring slots, so the label reads of a warp share sectors where
+  // the block's slots, kUnroll in flight per thread; neighbouring threads
+  // take neighbouring slots, so the label reads of a warp share sectors where
   // a row's sorted neighbours lie close.  The first batch's loads go out
   // before the spans are staged, so the two latencies overlap; a
   // label is read before its slot's row is known (the index clamped into
   // the table, the value used only for a slot inside a span).
-  int32_t we[U], lab[U];
-  load_batch<U, kStream>(dst, w, labels, j0, j1, n, we, lab);
+  int32_t we[kUnroll], lab[kUnroll];
+  load_batch(dst, w, labels, j0, j1, n, we, lab);
 
   for (int r = threadIdx.x; r < nr; r += kThreads) {
     int e = (int)clip_slot(__ldg(end + i0 + r), S);
@@ -193,12 +187,12 @@ ratings_kernel(const int32_t* __restrict__ start,
   }
   __syncthreads();
 
-  for (int base = j0; base < j1; base += U * kThreads) {
+  for (int base = j0; base < j1; base += kUnroll * kThreads) {
     if (base != j0) {
-      load_batch<U, kStream>(dst, w, labels, base, j1, n, we, lab);
+      load_batch(dst, w, labels, base, j1, n, we, lab);
     }
 #pragma unroll
-    for (int u = 0; u < U; ++u) {
+    for (int u = 0; u < kUnroll; ++u) {
       int j = base + u * kThreads + threadIdx.x;
       if (we[u] == 0) continue;
       // first row whose end is past j
@@ -252,45 +246,38 @@ ratings_kernel(const int32_t* __restrict__ start,
   }
 }
 
-template <bool kShared, int U, bool kStream>
+template <bool kShared>
 int launch_ratings(const void* start, const void* end, const void* dst,
                    const void* w, const void* labels, void* conn,
                    const int32_t* plan, int n, int S, int k, int nblocks,
-                   long long cost, cudaStream_t st) {
-  const int rows_cap = max_rows(cost);
-  size_t smem = (2 * (size_t)rows_cap +
-                 (kShared ? (size_t)counter_ints(k, cost) : 0)) *
-                sizeof(int32_t);
+                   cudaStream_t st) {
+  size_t smem = (2 * (size_t)kMaxRows +
+                 (kShared ? (size_t)counter_ints(k) : 0)) * sizeof(int32_t);
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
-        ratings_kernel<kShared, U, kStream>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        ratings_kernel<kShared>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
-  ratings_kernel<kShared, U, kStream>
-      <<<(unsigned)nblocks, kThreads, smem, st>>>(
+  ratings_kernel<kShared><<<(unsigned)nblocks, kThreads, smem, st>>>(
       (const int32_t*)start, (const int32_t*)end, (const int32_t*)dst,
       (const int32_t*)w, (const int32_t*)labels, (int32_t*)conn, plan, n, S,
-      k, nblocks, rows_cap);
+      k, nblocks);
   return 0;
 }
 
 }  // namespace
 
 // n rows and `slots` slots (both below 2^31); plan: int32[2 (nblocks +
-// 1)] scratch; cost: units of work per block (D, 256 to 16384); unroll:
-// slots in flight per thread (4, 8 or 16); stream_hints: 1 for
-// evict-first loads of dst and w.
+// 1)] scratch, nblocks from kp_dense_block_ratings_blocks.
 extern "C" int kp_dense_block_ratings(const void* start, const void* end,
                                       const void* dst, const void* w,
                                       const void* labels, void* conn,
                                       void* plan, long long n,
-                                      long long slots, int k, long long cost,
-                                      long long nblocks, int unroll,
-                                      int stream_hints, void* stream) {
+                                      long long slots, int k,
+                                      long long nblocks, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   const bool shared = k <= kMaxSharedK;
-  if (cost < 256 || cost > 16384) return (int)cudaErrorInvalidValue;
   if (!shared) {
     cudaMemsetAsync(conn, 0, (size_t)n * k * sizeof(int32_t), st);
   }
@@ -298,38 +285,21 @@ extern "C" int kp_dense_block_ratings(const void* start, const void* end,
   plan_kernel<<<(unsigned)((nblocks + plan_threads) / plan_threads),
                 plan_threads, 0, st>>>(
       (const int32_t*)start, (const int32_t*)end, (int32_t*)conn,
-      (int32_t*)plan, n, slots, k, row_cost(k), cost, nblocks, shared);
+      (int32_t*)plan, n, slots, k, row_cost(k), nblocks, shared);
   const int32_t* p = (const int32_t*)plan;
-  int code = 0;
-#define KP_LAUNCH(SHARED, U, HINTS)                                    \
-  launch_ratings<SHARED, U, HINTS>(start, end, dst, w, labels, conn, p, \
-                                   (int)n, (int)slots, k, (int)nblocks, \
-                                   cost, st)
-#define KP_RATINGS(U)                                                 \
-  if (shared) {                                                       \
-    code = stream_hints ? KP_LAUNCH(true, U, true)                    \
-                        : KP_LAUNCH(true, U, false);                  \
-  } else {                                                            \
-    code = stream_hints ? KP_LAUNCH(false, U, true)                   \
-                        : KP_LAUNCH(false, U, false);                 \
-  }
-  switch (unroll) {
-    case 4: KP_RATINGS(4); break;
-    case 8: KP_RATINGS(8); break;
-    case 16: KP_RATINGS(16); break;
-    default: return (int)cudaErrorInvalidValue;
-  }
-#undef KP_RATINGS
-#undef KP_LAUNCH
+  int code = shared
+      ? launch_ratings<true>(start, end, dst, w, labels, conn, p, (int)n,
+                             (int)slots, k, (int)nblocks, st)
+      : launch_ratings<false>(start, end, dst, w, labels, conn, p, (int)n,
+                              (int)slots, k, (int)nblocks, st);
   if (code != 0) return code;
   return (int)cudaGetLastError();
 }
 
-// The block count of a call: rows cost RC units, slots one, `cost` per
+// The block count of a call: rows cost RC units, slots one, kCost per
 // block.
 extern "C" long long kp_dense_block_ratings_blocks(long long n,
-                                                   long long slots, int k,
-                                                   long long cost) {
-  long long b = (n * row_cost(k) + slots + cost - 1) / cost;
+                                                   long long slots, int k) {
+  long long b = (n * row_cost(k) + slots + kCost - 1) / kCost;
   return b > 0 ? b : 1;
 }

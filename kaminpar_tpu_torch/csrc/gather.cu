@@ -15,113 +15,50 @@
 // times the bytes that device memory does; that, not HBM, is what the
 // measured time runs into.
 //
-// Design.  Every launch shape keeps many independent table reads in
-// flight: each thread starts all its reads before any store.  The table
-// is read through the read-only path (__ldg); the index and output
-// streams either the same way, or with evict-first hints (__ldcs /
-// __stcs) meant to keep them from pushing the table out of L2.
-// Neighbouring lanes of a warp always gather neighbouring elements: a CSR
-// row's neighbours are sorted, so the 32 reads of one warp instruction
-// share sectors where the row's neighbours lie close.  Two ways to get
-// the indices there:
-//   * scalar (mode 0): each thread takes U elements, one per block-wide
-//     step, with 4-byte coalesced loads;
-//   * vector (mode 1): each lane loads U 16-byte vectors (4 U indices)
-//     and the warp transposes them through shared memory, so the gathers
-//     stay lane-contiguous; a scalar head covers the indices before the
-//     first 16-byte boundary of idx and a scalar tail the last m % 4, so
-//     a view at any offset and any length is taken.
-// The grid is blocks_per_sm blocks of 256 threads on every SM, striding
-// over the work.
+// Design.  Each thread takes kUnroll elements per step, one per
+// block-wide stride, and starts all their table reads before any store,
+// so several independent reads are in flight per thread.  Neighbouring
+// lanes of a warp gather neighbouring elements with 4-byte coalesced index
+// loads: a CSR row's neighbours are sorted, so the 32 reads of one warp
+// instruction share sectors where the row's neighbours lie close.  The
+// table is read through the read-only path (__ldg).  The grid is
+// kBlocksPerSm blocks of 256 threads on every SM, striding over the work.
+// Loads of 16-byte index vectors and evict-first hints on the index and
+// output streams were measured slower or no faster on the H100 (PERF.md),
+// so neither is used.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
+constexpr int kUnroll = 2;
+constexpr int kBlocksPerSm = 64;
 
-// the index and output streams: evict-first (kStream) or default caching
-template <bool kStream, typename T>
-__device__ __forceinline__ T load_stream(const T* p) {
-  return kStream ? __ldcs(p) : __ldg(p);
-}
-template <bool kStream>
-__device__ __forceinline__ void store_stream(int32_t* p, int32_t v) {
-  if (kStream) __stcs(p, v);
-  else *p = v;
-}
-
-template <int U, bool kStream>
 __global__ void __launch_bounds__(kThreads)
-gather_scalar(const int32_t* __restrict__ table,
+gather_kernel(const int32_t* __restrict__ table,
               const int32_t* __restrict__ idx, int32_t* __restrict__ out,
               long long m) {
-  const long long step = (long long)gridDim.x * kThreads * U;
-  for (long long e0 = (long long)blockIdx.x * kThreads * U + threadIdx.x;
+  const long long step = (long long)gridDim.x * kThreads * kUnroll;
+  for (long long e0 = (long long)blockIdx.x * kThreads * kUnroll +
+                      threadIdx.x;
        e0 < m; e0 += step) {
-    int32_t ix[U], val[U];
+    int32_t ix[kUnroll], val[kUnroll];
 #pragma unroll
-    for (int u = 0; u < U; ++u) {
+    for (int u = 0; u < kUnroll; ++u) {
       long long e = e0 + (long long)u * kThreads;
-      ix[u] = e < m ? load_stream<kStream>(idx + e) : 0;
+      ix[u] = e < m ? __ldg(idx + e) : 0;
     }
 #pragma unroll
-    for (int u = 0; u < U; ++u) {
+    for (int u = 0; u < kUnroll; ++u) {
       long long e = e0 + (long long)u * kThreads;
       if (e < m) val[u] = __ldg(table + ix[u]);
     }
 #pragma unroll
-    for (int u = 0; u < U; ++u) {
+    for (int u = 0; u < kUnroll; ++u) {
       long long e = e0 + (long long)u * kThreads;
-      if (e < m) store_stream<kStream>(out + e, val[u]);
+      if (e < m) out[e] = val[u];
     }
-  }
-}
-
-template <int U, bool kStream>
-__global__ void __launch_bounds__(kThreads)
-gather_vector(const int32_t* __restrict__ table,
-              const int32_t* __restrict__ idx, int32_t* __restrict__ out,
-              long long m, long long head, long long nvec) {
-  __shared__ int4 stage[kWarps][32 * U];
-  const long long tid = (long long)blockIdx.x * kThreads + threadIdx.x;
-  if (tid < head) {
-    out[tid] = __ldg(table + __ldcs(idx + tid));
-  }
-  const long long tail0 = head + 4 * nvec;
-  if (tid < m - tail0) {
-    out[tail0 + tid] = __ldg(table + __ldcs(idx + tail0 + tid));
-  }
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int4* iv = reinterpret_cast<const int4*>(idx + head);
-  int32_t* ob = out + head;
-  const int32_t* st = reinterpret_cast<const int32_t*>(stage[warp]);
-  const long long nel = 4 * nvec;
-  // a warp's segment: 32 U vectors, 128 U elements
-  const long long step = (long long)gridDim.x * kWarps * 32 * U;
-  for (long long v0 = ((long long)blockIdx.x * kWarps + warp) * 32 * U;
-       v0 < nvec; v0 += step) {
-#pragma unroll
-    for (int u = 0; u < U; ++u) {
-      long long v = v0 + u * 32 + lane;
-      if (v < nvec) {
-        stage[warp][u * 32 + lane] = load_stream<kStream>(iv + v);
-      }
-    }
-    __syncwarp();
-    int32_t val[4 * U];
-#pragma unroll
-    for (int q = 0; q < 4 * U; ++q) {
-      long long e = 4 * v0 + q * 32 + lane;
-      if (e < nel) val[q] = __ldg(table + st[q * 32 + lane]);
-    }
-#pragma unroll
-    for (int q = 0; q < 4 * U; ++q) {
-      long long e = 4 * v0 + q * 32 + lane;
-      if (e < nel) store_stream<kStream>(ob + e, val[q]);
-    }
-    __syncwarp();
   }
 }
 
@@ -136,63 +73,16 @@ int sm_count() {
   return sms;
 }
 
-unsigned grid(long long work, long long per_block, int blocks_per_sm) {
-  long long blocks = (work + per_block - 1) / per_block;
-  long long cap = (long long)sm_count() * blocks_per_sm;
-  if (blocks > cap) blocks = cap;
-  return (unsigned)(blocks < 1 ? 1 : blocks);
-}
-
-template <int U, bool kStream>
-void launch(int mode, const int32_t* table, const int32_t* idx, int32_t* out,
-            long long m, int blocks_per_sm, cudaStream_t stream) {
-  if (mode == 0) {
-    gather_scalar<U, kStream>
-        <<<grid(m, (long long)kThreads * U, blocks_per_sm), kThreads, 0,
-           stream>>>(table, idx, out, m);
-    return;
-  }
-  long long misalign = (long long)(((uintptr_t)idx >> 2) & 3);
-  long long head = misalign ? 4 - misalign : 0;
-  if (head > m) head = m;
-  long long nvec = (m - head) / 4;
-  gather_vector<U, kStream>
-      <<<grid(nvec, (long long)kThreads * U, blocks_per_sm), kThreads, 0,
-         stream>>>(table, idx, out, m, head, nvec);
-}
-
 }  // namespace
 
-// mode: 0 scalar, 1 vector (see above); unroll: elements (mode 0) or
-// 16-byte vectors (mode 1) per thread and step, 1, 2 or 4;
-// blocks_per_sm: the grid, in blocks of 256 threads on each SM;
-// stream_hints: 1 for evict-first hints on the index and output streams.
 extern "C" int kp_gather_i32(const void* table, const void* idx, void* out,
-                             long long m, int mode, int unroll,
-                             int blocks_per_sm, int stream_hints,
-                             void* stream) {
+                             long long m, void* stream) {
   if (m <= 0) return (int)cudaGetLastError();
-  if ((mode != 0 && mode != 1) || blocks_per_sm < 1) {
-    return (int)cudaErrorInvalidValue;
-  }
-  const int32_t* t = (const int32_t*)table;
-  const int32_t* ix = (const int32_t*)idx;
-  int32_t* o = (int32_t*)out;
-  cudaStream_t st = (cudaStream_t)stream;
-#define KP_GATHER_CASE(U)                                       \
-  case U:                                                       \
-    if (stream_hints) {                                         \
-      launch<U, true>(mode, t, ix, o, m, blocks_per_sm, st);    \
-    } else {                                                    \
-      launch<U, false>(mode, t, ix, o, m, blocks_per_sm, st);   \
-    }                                                           \
-    break;
-  switch (unroll) {
-    KP_GATHER_CASE(1)
-    KP_GATHER_CASE(2)
-    KP_GATHER_CASE(4)
-    default: return (int)cudaErrorInvalidValue;
-  }
-#undef KP_GATHER_CASE
+  const long long per_block = (long long)kThreads * kUnroll;
+  long long blocks = (m + per_block - 1) / per_block;
+  const long long cap = (long long)sm_count() * kBlocksPerSm;
+  if (blocks > cap) blocks = cap;
+  gather_kernel<<<(unsigned)blocks, kThreads, 0, (cudaStream_t)stream>>>(
+      (const int32_t*)table, (const int32_t*)idx, (int32_t*)out, m);
   return (int)cudaGetLastError();
 }

@@ -35,20 +35,7 @@ DEBUG_ENV = "KAMINPAR_TPU_TORCH_DEBUG"
 _VP = ctypes.c_void_p
 _LL = ctypes.c_longlong
 
-# K1's launch shape: (mode, unroll, blocks of 256 threads per SM,
-# evict-first hints on the streams), mode 0 taking `unroll` 4-byte indices
-# per thread and step, mode 1 `unroll` 16-byte index vectors
-# (csrc/gather.cu); chip_smoke.py times them all
-GATHER_VARIANT = (0, 2, 64, 0)
-GATHER_VARIANTS = tuple((mode, u, b, h) for mode in (0, 1) for u in (1, 2, 4)
-                        for b in (32, 64) for h in (0, 1))
-# K2's launch shape: (slots in flight per thread, units of work per
-# block, evict-first hints on dst and w); chip_smoke.py times the
-# alternatives.  The kernel indexes slots in int32, with a block's step of
-# headroom.
-RATINGS_VARIANT = (16, 4096, 0)
-RATINGS_VARIANTS = tuple((u, c, h) for u in (8, 16) for c in (2048, 4096)
-                         for h in (0, 1))
+# K2 indexes slots in int32, with a block's step of headroom
 MAX_RATING_SLOTS = (1 << 31) - (1 << 16)
 
 
@@ -76,12 +63,9 @@ def gather_i32_twin(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return table[idx]
 
 
-def gather_i32(table: torch.Tensor, idx: torch.Tensor,
-               variant: tuple[int, ...] | None = None) -> torch.Tensor:
+def gather_i32(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """out[e] = table[idx[e]] (int32, edge order).  Indices must lie in
-    [0, len(table)): callers clip exactly where the JAX package clips.
-    `variant` = (mode, unroll, blocks per SM, stream hints) picks the
-    launch shape (default GATHER_VARIANT)."""
+    [0, len(table)): callers clip exactly where the JAX package clips."""
     if table.device.type == "cpu":
         return gather_i32_twin(table, idx)
     table = table.contiguous()
@@ -94,17 +78,11 @@ def gather_i32(table: torch.Tensor, idx: torch.Tensor,
                 f"gather_i32: index range [{lo}, {hi}] outside "
                 f"[0, {table.numel()})"
             )
-    mode, unroll, blocks_per_sm, hints = variant or GATHER_VARIANT
     out = torch.empty(idx.shape, dtype=torch.int32, device=idx.device)
-    fn = _native.bind(
-        "gather.cu", "kp_gather_i32",
-        (_VP, _VP, _VP, _LL, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-         ctypes.c_int, _VP),
-    )
+    fn = _native.bind("gather.cu", "kp_gather_i32", (_VP, _VP, _VP, _LL, _VP))
     with _native.timed("gather_i32"):
         code = fn(table.data_ptr(), idx.data_ptr(), out.data_ptr(),
-                  idx.numel(), mode, unroll, blocks_per_sm, hints,
-                  _stream())
+                  idx.numel(), _stream())
     _native.check(code, "gather_i32")
     gather_i32.launches += 1
     return out
@@ -156,14 +134,11 @@ def dense_block_ratings(
     labels: torch.Tensor,
     n_pad: int,
     num_blocks: int,
-    variant: tuple[int, int, int] | None = None,
 ) -> torch.Tensor:
     """Exact (n_pad, k) connection table: conn[u, clip(labels[dst[e]], 0,
     k-1)] += edge_w[e] over the slots e of row u's span [row_start[u],
     row_end[u]), clipped to [0, len(dst)).  The spans are in row order and
-    do not overlap (CSR offsets, or expand_active_rows' start and end).
-    `variant` = (slots in flight per thread, units of work per block,
-    stream hints) picks the launch shape (default RATINGS_VARIANT)."""
+    do not overlap (CSR offsets, or expand_active_rows' start and end)."""
     if dst.device.type == "cpu":
         return dense_block_ratings_twin(
             row_start, row_end, dst, edge_w, labels, n_pad, num_blocks
@@ -181,11 +156,10 @@ def dense_block_ratings(
     if slots > MAX_RATING_SLOTS:
         raise ValueError(f"dense_block_ratings: {slots} slots exceed the "
                          f"kernel's int32 slot index")
-    unroll, cost, hints = variant or RATINGS_VARIANT
     blocks = _native.bind(
         "dense_ratings.cu", "kp_dense_block_ratings_blocks",
-        (_LL, _LL, ctypes.c_int, _LL), restype=_LL,
-    )(n_pad, slots, int(num_blocks), cost)
+        (_LL, _LL, ctypes.c_int), restype=_LL,
+    )(n_pad, slots, int(num_blocks))
     conn = torch.empty((n_pad, num_blocks), dtype=torch.int32,
                        device=dst.device)
     plan = torch.empty(2 * (blocks + 1), dtype=torch.int32,
@@ -193,13 +167,13 @@ def dense_block_ratings(
     fn = _native.bind(
         "dense_ratings.cu", "kp_dense_block_ratings",
         (_VP, _VP, _VP, _VP, _VP, _VP, _VP, _LL, _LL, ctypes.c_int, _LL,
-         _LL, ctypes.c_int, ctypes.c_int, _VP),
+         _VP),
     )
     with _native.timed("dense_block_ratings"):
         code = fn(row_start.data_ptr(), row_end.data_ptr(), dst.data_ptr(),
                   edge_w.data_ptr(), labels.data_ptr(), conn.data_ptr(),
-                  plan.data_ptr(), n_pad, slots, int(num_blocks), cost,
-                  blocks, unroll, hints, _stream())
+                  plan.data_ptr(), n_pad, slots, int(num_blocks), blocks,
+                  _stream())
     _native.check(code, "dense_block_ratings")
     dense_block_ratings.launches += 1
     return conn

@@ -362,15 +362,13 @@ def test_kernels_match_twins_on_card():
     )
     gen = np.random.default_rng(0)
     labels = labels_from_numpy(gen.integers(0, g.n_pad, g.n_pad), dev)
-    for variant in gather.GATHER_VARIANTS:
-        assert torch.equal(gather.gather_i32(labels, g.dst, variant),
-                           gather.gather_i32_twin(labels, g.dst))
+    assert torch.equal(gather.gather_i32(labels, g.dst),
+                       gather.gather_i32_twin(labels, g.dst))
     # an odd length at every offset from a 16-byte boundary
     for off in range(4):
         idx = g.dst[off: off + 10_001]
-        for variant in gather.GATHER_VARIANTS:
-            assert torch.equal(gather.gather_i32(labels, idx, variant),
-                               gather.gather_i32_twin(labels, idx))
+        assert torch.equal(gather.gather_i32(labels, idx),
+                           gather.gather_i32_twin(labels, idx))
     part = labels_from_numpy(gen.integers(-1, 17, g.n_pad), dev)
     spans = (g.row_ptr[:-1], g.row_ptr[1:])
     args = (*spans, g.dst, g.edge_w, part, g.n_pad, 16)
@@ -390,9 +388,8 @@ def test_kernels_match_twins_on_card():
     for k in (2, 16, 256, 2048, 4096):
         lab = labels_from_numpy(gen.integers(-1, k + 1, 4096), dev)
         hub = (*hub_spans, hub_dst, hub_w, lab, 4096, k)
-        for variant in gather.RATINGS_VARIANTS:
-            assert torch.equal(gather.dense_block_ratings(*hub, variant),
-                               gather.dense_block_ratings_twin(*hub))
+        assert torch.equal(gather.dense_block_ratings(*hub),
+                           gather.dense_block_ratings_twin(*hub))
     nb = gather.gather_i32(labels, g.dst)
     sl, sw, _ = rating.scatter_slot_ratings(g.src, nb, g.edge_w, g.n_pad,
                                             32, 7)
