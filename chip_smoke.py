@@ -14,7 +14,11 @@ Phases, each fatal on failure:
      call; K1 and K2 are also held against their twins on edge cases (an
      odd-length index view at every offset from a 16-byte boundary, hub
      rows of 45k edges, a k beyond K2's shared-memory design, delta-round
-     spans cut at the buffer);
+     spans cut at the buffer), the fused K3 on cluster weights around the
+     cap and at INT32_MAX, at num_slots 4 (contested rows), on hub rows
+     of 45k edges and on delta spans cut at the buffer, and it is timed
+     beside the torch chain it replaces (scatter_slot_ratings, then the
+     standalone K3);
   4. partition make_rmat(1<<14, 120_000, seed=3) at k=8 on the CPU and on
      the card: the two partitions must be bitwise equal, and both must
      have run the native initial bipartitioner;
@@ -22,7 +26,8 @@ Phases, each fatal on failure:
      seed=1), on the bench's two graphs: make_rmat(1<<20, 10_000_000,
      seed=7) and make_rmat(1<<16, 600_000, seed=3).  Each partition must
      be in range and within the strict caps, and its device cut must equal
-     a numpy recount; every kernel must have launched during the phase,
+     a numpy recount and the cut of every earlier run; every kernel of
+     the path (K1, K2, the fused K3) must have launched during the phase,
      and the native initial bipartitioner in each cell.  Every launch is
      bracketed by CUDA events, summed per kernel and cell as `path_ms`;
   6. print the per-kernel JSON line, then the final status line.
@@ -30,7 +35,9 @@ Phases, each fatal on failure:
 The rating engine is chosen per level from the graph's density: the large
 graph (average degree 33 > 32 slots) takes the sort2 engine at every
 level and never reaches K3, the medium graph (average degree 26) takes
-the scatter engine, whose arg-max is K3.  So the main path is both graphs.
+the scatter engine, which is the fused K3.  So the main path is both
+graphs.  The standalone K3 (the table's arg-max alone) is no longer on
+it: it is checked and timed in phase 3 and shows 0 launches.
 
 Takes no arguments.  Exits non-zero without a result when CUDA is
 unavailable or the package is missing.
@@ -51,6 +58,10 @@ import numpy as np
 HBM_BYTES_PER_S = 3.35e12
 INT_OPS_PER_S = 67e12
 K_MAIN = 16
+# the main path's cuts (k=16, eps=0.03, seed=1): the pipeline is integer
+# arithmetic with hashed tie-breaks, and every run of the port since its
+# native IP (PERF.md) gave these; another cut is another partition
+EXPECTED_CUTS = {"large": 2_971_596, "medium": 250_236}
 
 
 def fail(msg: str) -> None:
@@ -215,65 +226,10 @@ def main() -> None:
     })
     del out, ref, labels, part, dg
 
-    # K3 on the medium graph's level-0 slot table (the scatter engine's
-    # first round: every node its own cluster)
-    core = graphs["medium"][1]
-    dg = device_graph_from_host(core, dev)
-    ctx = kp.context_from_preset("default")
-    ctx.partition.setup(core, k=K_MAIN, epsilon=0.03)
-    lp_cfg = Coarsener(ctx, dg, core.n)._level_lp_cfg(dg)
-    if lp_cfg.rating != "scatter":
-        fail(f"medium graph level 0 takes {lp_cfg.rating}, not scatter")
-    ids = dg.node_ids()
-    nb = gather.gather_i32(ids, dg.dst)
-    slot_label, slot_w, _ = rating.scatter_slot_ratings(
-        dg.src, nb, dg.edge_w, dg.n_pad, lp_cfg.num_slots, 12345,
-        spans=(dg.row_ptr[:-1], dg.row_ptr[1:]),
-    )
-    # cluster weights in [cap - 2, cap] (unit node weights: about a third
-    # of the labels is infeasible), and every 37th at INT32_MAX, where
-    # cw + node_w wraps negative in int32 and so passes the mask
-    cap_value, i32_max = 64, np.iinfo(np.int32).max
-    cw_np = rng.integers(cap_value - 2, cap_value + 1, dg.n_pad,
-                         dtype=np.int32)
-    cw_np[::37] = i32_max
-    cw = torch.from_numpy(cw_np).to(dev)
-    cap = torch.full((dg.n_pad,), cap_value, dtype=torch.int32, device=dev)
-    args3 = (slot_label, slot_w, ids, cw, dg.node_w, cap, 0x2545F491)
-    outs = rating.best_from_slots(*args3)
-    refs = rating.best_from_slots_twin(*args3)
-    outs_nf = rating.best_from_slots(*args3, require_fit=False)
-    refs_nf = rating.best_from_slots_twin(*args3, require_fit=False)
-    torch.cuda.synchronize()
-    for o, r in zip(outs + outs_nf, refs + refs_nf):
-        if not torch.equal(o, r):
-            fail("K3 best_from_slots disagrees with its twin")
-    masked_rows = int((outs[0] != outs_nf[0]).sum())
-    best = outs[0]
-    wrapped_rows = int(((best >= 0) & (cw[best.clamp(min=0)] == i32_max))
-                       .sum())
-    if masked_rows == 0 or wrapped_rows == 0:
-        fail(f"K3 check is blind: the mask changed {masked_rows} rows, "
-             f"{wrapped_rows} rows chose a wrapped-feasible label")
-    print(json.dumps({"k3_masked_rows": masked_rows,
-                      "k3_wrapped_rows": wrapped_rows}), flush=True)
-    rows, S = slot_label.shape
-    # slot tables once, labels/node weights/cluster weights/caps once,
-    # three outputs; one hash and a handful of compares per slot
-    b, by = bound_ms(8 * rows * S + 16 * rows + 12 * rows, 16 * rows * S)
-    kernels.append({
-        "name": "best_from_slots", "route": "cuda",
-        "source": "kaminpar_tpu_torch/csrc/best_from_slots.cu",
-        "replaces": "kaminpar_tpu/ops/rating.py:377",
-        "max_abs_err": max(max_abs_err(o, r) for o, r in zip(outs, refs)),
-        "ms": time_ms(lambda: rating.best_from_slots(*args3), torch),
-        "plain_ms": time_ms(
-            lambda: rating.best_from_slots_twin(*args3), torch),
-        "bound_ms": b, "bound_by": by,
-        "library_ms": None,
-        "shape": {"graph": "medium", "rows": rows, "slots": S},
-    })
-    del slot_label, slot_w, outs, refs, outs_nf, refs_nf, dg
+    # K3, standalone and fused, on the medium graph's level 0 (the scatter
+    # engine's first round: every node its own cluster)
+    kernels += check_k3(graphs["medium"][1], kp, gather, rating, segments,
+                        Coarsener, device_graph_from_host, rng, dev, torch)
     torch.cuda.empty_cache()
     print(json.dumps({"kernel_checks": "ok"}), flush=True)
 
@@ -297,9 +253,11 @@ def main() -> None:
              f"{int((parts['cpu'] != parts['cuda']).sum())} nodes")
     print(json.dumps({"small_parity": "bitwise-equal"}), flush=True)
 
-    # -- 5. the main path
-    counted = (gather.gather_i32, gather.dense_block_ratings,
-               rating.best_from_slots)
+    # -- 5. the main path; the standalone K3 is off it (the scatter engine
+    # runs the fused K3) and is counted only to show so
+    path_kernels = (gather.gather_i32, gather.dense_block_ratings,
+                    rating.scatter_best_from_slots)
+    counted = path_kernels + (rating.best_from_slots,)
     for fn in counted:
         fn.launches = 0
     path_ms = {fn.__name__: {} for fn in counted}
@@ -318,18 +276,192 @@ def main() -> None:
         print(json.dumps({"native_ip": name, "calls":
                           native.ml_bipartition.calls}), flush=True)
     launches = {fn.__name__: fn.launches for fn in counted}
-    for fname, count in launches.items():
-        if count <= 0:
-            fail(f"main path: kernel {fname} was never launched")
+    for fn in path_kernels:
+        if launches[fn.__name__] <= 0:
+            fail(f"main path: kernel {fn.__name__} was never launched")
 
     for entry in kernels:
         entry["launches"] = launches[entry["name"]]
         entry["path_ms"] = path_ms[entry["name"]]
+        entry["on_path"] = entry["name"] != "best_from_slots"
         entry["ok"] = True
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
+
+
+def k3_bound_ms(rows: int, edges: int, num_slots: int) -> tuple:
+    """Bound of the fused K3 over `rows` rows whose spans hold `edges`
+    edges: the spans (8 per row), each edge's dst and w (8) and its label
+    gather (4), labels, node weights, cluster weights and caps (16 per
+    row) and the outputs (13 per row) moved once; about three hashes and
+    a few compares per edge (40 operations) and one hash and a few
+    compares per slot of the 2 * num_slots (16)."""
+    return bound_ms(37 * rows + 12 * edges,
+                    40 * edges + 16 * rows * 2 * num_slots)
+
+
+def check_k3(core, kp, gather, rating, segments, Coarsener,
+             device_graph_from_host, rng, dev, torch) -> list:
+    """K3 on the medium graph's level 0: the standalone kernel on the
+    slot table of scatter_slot_ratings, and the fused kernel on the level's
+    spans, each held against its twin; the fused one also at num_slots 4
+    (contested rows), on hub rows of 45k edges and on delta spans cut at
+    the buffer.  Returns both kernels' entries of the JSON line."""
+    dg = device_graph_from_host(core, dev)
+    ctx = kp.context_from_preset("default")
+    ctx.partition.setup(core, k=K_MAIN, epsilon=0.03)
+    lp_cfg = Coarsener(ctx, dg, core.n)._level_lp_cfg(dg)
+    if lp_cfg.rating != "scatter":
+        fail(f"medium graph level 0 takes {lp_cfg.rating}, not scatter")
+    num_slots, salt = lp_cfg.num_slots, 12345
+    ids = dg.node_ids()
+    spans = (dg.row_ptr[:-1], dg.row_ptr[1:])
+    nb = gather.gather_i32(ids, dg.dst)
+    slot_label, slot_w, _ = rating.scatter_slot_ratings(
+        dg.src, nb, dg.edge_w, dg.n_pad, num_slots, salt, spans=spans,
+    )
+    # cluster weights in [cap - 2, cap] (unit node weights: about a third
+    # of the labels is infeasible), and every 37th at INT32_MAX, where
+    # cw + node_w wraps negative in int32 and so passes the mask
+    cap_value, i32_max = 64, np.iinfo(np.int32).max
+
+    def around_cap(n):
+        cw_np = rng.integers(cap_value - 2, cap_value + 1, n, dtype=np.int32)
+        cw_np[::37] = i32_max
+        return (torch.from_numpy(cw_np).to(dev),
+                torch.full((n,), cap_value, dtype=torch.int32, device=dev))
+
+    cw, cap = around_cap(dg.n_pad)
+
+    def blind_check(what, best_fit, best_nofit):
+        masked = int((best_fit != best_nofit).sum())
+        wrapped = int(((best_fit >= 0)
+                       & (cw[best_fit.clamp(min=0)] == i32_max)).sum())
+        if masked == 0 or wrapped == 0:
+            fail(f"{what} check is blind: the mask changed {masked} rows, "
+                 f"{wrapped} rows chose a wrapped-feasible label")
+        return masked, wrapped
+
+    # -- standalone
+    args3 = (slot_label, slot_w, ids, cw, dg.node_w, cap, 0x2545F491)
+    outs = rating.best_from_slots(*args3)
+    refs = rating.best_from_slots_twin(*args3)
+    outs_nf = rating.best_from_slots(*args3, require_fit=False)
+    refs_nf = rating.best_from_slots_twin(*args3, require_fit=False)
+    torch.cuda.synchronize()
+    for o, r in zip(outs + outs_nf, refs + refs_nf):
+        if not torch.equal(o, r):
+            fail("K3 best_from_slots disagrees with its twin")
+    masked, wrapped = blind_check("K3", outs[0], outs_nf[0])
+    print(json.dumps({"k3_masked_rows": masked, "k3_wrapped_rows": wrapped}),
+          flush=True)
+    rows, S = slot_label.shape
+    # slot tables once, labels/node weights/cluster weights/caps once,
+    # three outputs; one hash and a handful of compares per slot
+    b, by = bound_ms(8 * rows * S + 16 * rows + 12 * rows, 16 * rows * S)
+    standalone = {
+        "name": "best_from_slots", "route": "cuda",
+        "source": "kaminpar_tpu_torch/csrc/best_from_slots.cu",
+        "replaces": "kaminpar_tpu/ops/rating.py:377",
+        "max_abs_err": max(max_abs_err(o, r) for o, r in zip(outs, refs)),
+        "ms": time_ms(lambda: rating.best_from_slots(*args3), torch),
+        "plain_ms": time_ms(
+            lambda: rating.best_from_slots_twin(*args3), torch),
+        "bound_ms": b, "bound_by": by,
+        "library_ms": None,
+        "shape": {"graph": "medium", "rows": rows, "slots": S},
+    }
+    del outs, refs, outs_nf, refs_nf
+
+    # -- fused: the level's spans at the path's num_slots and at 4
+    def fused_case(what, args, blind=False, contested=False):
+        err = 0
+        out = {}
+        for fit in (True, False):
+            a = rating.scatter_best_from_slots(*args, require_fit=fit)
+            r = rating.scatter_best_from_slots_twin(*args, require_fit=fit)
+            torch.cuda.synchronize()
+            for x, y in zip(a, r):
+                if not torch.equal(x, y):
+                    fail(f"fused K3 disagrees with its twin: {what}, "
+                         f"require_fit={fit}")
+            err = max(err, *(max_abs_err(x, y) for x, y in zip(a, r)))
+            out[fit] = a
+        if blind:
+            blind_check(f"fused K3 ({what})", out[True][0], out[False][0])
+        unrated = int((~out[True][3]).sum())
+        if contested and unrated == 0:
+            fail(f"fused K3 check is blind ({what}): every row fully rated")
+        return err, unrated
+
+    level = (*spans, dg.dst, dg.edge_w, ids, cw, dg.node_w, cap)
+    fused_args = (*level, num_slots, salt)
+    err, unrated = fused_case(f"level 0, num_slots {num_slots}", fused_args,
+                              blind=True)
+    err4, unrated4 = fused_case("level 0, num_slots 4", (*level, 4, salt),
+                                blind=True, contested=True)
+    # a delta round over 60% of the rows in a buffer of a quarter of the
+    # slots (LP's delta size): the spans run past the buffer
+    active = torch.from_numpy(rng.random(dg.n_pad) < 0.6).to(dev)
+    _, _, edge_id, valid, start, end = segments.expand_active_rows(
+        dg.row_ptr, dg.degrees, active, dg.m_pad // 4)
+    if int(end.max()) <= dg.m_pad // 4:
+        fail("fused K3 delta case: the spans do not run past the buffer")
+    eid = edge_id.clamp(0, dg.m_pad - 1)
+    dst_b = torch.where(valid, dg.dst[eid], dg.n_pad - 1)
+    w_b = torch.where(valid, dg.edge_w[eid], 0)
+    err_d, _ = fused_case("delta spans cut at the buffer",
+                          (start, end, dst_b, w_b, ids, cw, dg.node_w, cap,
+                           num_slots, salt))
+    # hub rows of 45k edges (the block-per-row kernel) beside light rows
+    deg = rng.integers(0, 24, 1 << 16)
+    deg[[7, 31_000, 65_000]] = (45_000, 44_904, 41_000)
+    deg[-4000:] = 0
+    row_ptr = np.concatenate([[0], np.cumsum(deg)]).astype(np.int32)
+    hub_m = int(row_ptr[-1])
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(dev)
+    hub_cw, hub_cap = around_cap(1 << 16)
+    hub_args = (t(row_ptr[:-1]), t(row_ptr[1:]),
+                t(rng.integers(0, 1 << 16, hub_m)),
+                t(rng.integers(0, 4, hub_m)),
+                t(rng.integers(0, 1 << 16, 1 << 16)), hub_cw,
+                t(np.ones(1 << 16)), hub_cap, num_slots, salt)
+    err_h, _ = fused_case("hub rows", hub_args)
+    print(json.dumps({"fused_k3_cases": {
+        "level0_unrated_rows": unrated, "slots4_unrated_rows": unrated4,
+        "delta": "ok", "hub_rows": [45_000, 44_904, 41_000]}}), flush=True)
+
+    def replaced():  # the scatter engine's chain before the fused K3
+        sl, sw, _ = rating.scatter_slot_ratings(
+            dg.src, nb, dg.edge_w, dg.n_pad, num_slots, salt, spans=spans)
+        return rating.best_from_slots(sl, sw, ids, cw, dg.node_w, cap, salt)
+
+    b, by = k3_bound_ms(dg.n_pad, dg.m, num_slots)
+    hub_b, _ = k3_bound_ms(1 << 16, hub_m, num_slots)
+    fused = {
+        "name": "scatter_best_from_slots", "route": "cuda",
+        "source": "kaminpar_tpu_torch/csrc/best_from_slots.cu",
+        "replaces": "kaminpar_tpu/ops/rating.py:377",
+        "max_abs_err": max(err, err4, err_d, err_h),
+        "ms": time_ms(lambda: rating.scatter_best_from_slots(*fused_args),
+                      torch),
+        "plain_ms": time_ms(
+            lambda: rating.scatter_best_from_slots_twin(*fused_args), torch,
+            reps=5),
+        "bound_ms": b, "bound_by": by,
+        "library_ms": None,
+        "replaced_ms": time_ms(replaced, torch, reps=5),
+        "replaced_gather_ms": time_ms(
+            lambda: gather.gather_i32(ids, dg.dst), torch),
+        "hub_ms": time_ms(
+            lambda: rating.scatter_best_from_slots(*hub_args), torch),
+        "hub_bound_ms": hub_b,
+        "shape": {"graph": "medium", "rows": dg.n_pad, "edges": dg.m,
+                  "num_slots": num_slots, "hub_edges": hub_m},
+    }
+    return [standalone, fused]
 
 
 def check_k2_edge_cases(dg, gather, segments, rng, dev, torch) -> None:
@@ -410,6 +542,9 @@ def run_main(name, graph, kp, counted, dev, metrics, device_graph_from_host,
     if cut_dev != cut_host:
         fail(f"main path ({name}): device cut {cut_dev} != host cut "
              f"{cut_host}")
+    if cut_host != EXPECTED_CUTS[name]:
+        fail(f"main path ({name}): cut {cut_host}, every earlier run gave "
+             f"{EXPECTED_CUTS[name]}")
     perfect = -(-graph.total_node_weight // K_MAIN)
     print(json.dumps({
         "main_path": name, "n": graph.n, "m": graph.m, "k": K_MAIN,

@@ -96,6 +96,25 @@ gather_i32.launches = 0
 # --------------------------------------------------------------------------
 
 
+def span_slots(row_start: torch.Tensor, row_end: torch.Tensor, slots: int,
+               n_pad: int):
+    """Every buffer slot of each row's span [row_start[u], row_end[u]),
+    clipped to [0, slots), in row order: (row i64, slot i64, span length
+    i64[n_pad]).  What the span kernels (K2, the fused K3) read."""
+    end = row_end.to(torch.int64).clamp(0, slots)
+    start = torch.minimum(row_start.to(torch.int64).clamp(0, slots), end)
+    length = end - start
+    dev = row_end.device
+    rows = torch.repeat_interleave(
+        torch.arange(n_pad, dtype=torch.int64, device=dev), length
+    )
+    first = torch.cumsum(length, 0) - length
+    slot = torch.arange(rows.shape[0], dtype=torch.int64, device=dev) + (
+        start - first
+    )[rows]
+    return rows, slot, length
+
+
 def dense_block_ratings_twin(
     row_start: torch.Tensor,
     row_end: torch.Tensor,
@@ -107,21 +126,11 @@ def dense_block_ratings_twin(
 ) -> torch.Tensor:
     """Plain torch version of K2 (segments.dense_block_ratings): each
     slot's row comes from the clipped spans."""
-    slots = dst.shape[0]
-    end = row_end.to(torch.int64).clamp(0, slots)
-    start = torch.minimum(row_start.to(torch.int64).clamp(0, slots), end)
-    length = end - start
-    dev = dst.device
-    rows = torch.repeat_interleave(
-        torch.arange(n_pad, dtype=torch.int64, device=dev), length
-    )
-    first = torch.cumsum(length, 0) - length
-    slot = torch.arange(rows.shape[0], dtype=torch.int64, device=dev) + (
-        start - first
-    )[rows]
+    rows, slot, _ = span_slots(row_start, row_end, dst.shape[0], n_pad)
     lab_c = labels.clamp(0, num_blocks - 1)
     flat = rows * num_blocks + lab_c[dst[slot]].to(torch.int64)
-    conn = torch.zeros(n_pad * num_blocks, dtype=torch.int32, device=dev)
+    conn = torch.zeros(n_pad * num_blocks, dtype=torch.int32,
+                       device=dst.device)
     conn.index_add_(0, flat, edge_w[slot].to(torch.int32))
     return conn.view(n_pad, num_blocks)
 

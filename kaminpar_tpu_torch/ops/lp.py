@@ -28,8 +28,7 @@ from ..graphs.csr import DeviceGraph
 from .gather import gather_i32
 from .rating import (
     SCATTER_FALLBACK_FRAC,
-    best_from_slots,
-    scatter_slot_ratings,
+    scatter_best_from_slots,
     select_engine,
 )
 from .segments import (
@@ -190,13 +189,12 @@ def lp_round(
             best = torch.where(ok, lab_j, best)
             best_w = torch.where(ok, val_j, best_w)
     elif engine == "scatter":
-        nb = neighbor_labels()
-        seg_owner = (
-            torch.where(valid, owner_c, -1) if valid is not None else owner_c
-        )
-        slot_label, slot_w, fully_rated = scatter_slot_ratings(
-            owner_c, nb, w_b, n_pad, cfg.num_slots, salt,
-            valid=valid, spans=(start, end),
+        # the fused K3 rates each row's span (spans past a delta round's
+        # buffer are cut at it); the neighbour labels are gathered only
+        # when the sort fallback needs them
+        best, best_w, w_cur, fully_rated = scatter_best_from_slots(
+            start, end, dst_b, w_b, labels, cluster_weights, node_w, cap,
+            cfg.num_slots, salt, communities=communities,
         )
         act_real = active & (node_ids < graph.n)
         use_scatter = _scatter_predicate(
@@ -205,12 +203,13 @@ def lp_round(
             cfg.scatter_fallback,
         )
         if use_scatter:
-            best, best_w, w_cur = best_from_slots(
-                slot_label, slot_w, labels, cluster_weights, node_w, cap,
-                salt, communities=communities,
-            )
             barred = ~fully_rated
         else:
+            nb = neighbor_labels()
+            seg_owner = (
+                torch.where(valid, owner_c, -1) if valid is not None
+                else owner_c
+            )
             seg_g, key_g, w_g = aggregate_by_key(seg_owner, nb, w_b)
             key_c = key_g.clamp(0, C - 1)
             seg_c = seg_g.clamp(0, n_pad - 1)
@@ -500,20 +499,27 @@ def two_hop_cluster(
         & is_real
         & (graph.degrees > 0)
     )
-    neighbor_cluster = gather_i32(labels, graph.dst)
     engine = _select_engine(cfg, C, graph.m_pad, n_pad)
+
+    def neighbor_cluster():
+        return gather_i32(labels, graph.dst)
 
     def sort_favored():
         seg_g, key_g, w_g = aggregate_by_key(
-            graph.src, neighbor_cluster, graph.edge_w
+            graph.src, neighbor_cluster(), graph.edge_w
         )
         fav, _ = argmax_per_segment(seg_g, key_g, w_g, n_pad, tie_salt=seed)
         return fav
 
     if engine == "scatter":
-        slot_label, slot_w, fully_rated = scatter_slot_ratings(
-            graph.src, neighbor_cluster, graph.edge_w, n_pad,
-            cfg.num_slots, seed,
+        # the JAX package rates the COO edges (graph.src) here; the CSR
+        # spans hold the same edges but the pad edges, which only touch
+        # the pad row and leave every output unchanged
+        fav, fav_w, _, fully_rated = scatter_best_from_slots(
+            graph.row_ptr[:-1], graph.row_ptr[1:], graph.dst, graph.edge_w,
+            labels, cluster_weights, graph.node_w,
+            max_cluster_weight.expand(C), cfg.num_slots, seed,
+            require_fit=False,
         )
         use_scatter = _scatter_predicate(
             (singleton & ~fully_rated).sum(dtype=torch.int32),
@@ -521,19 +527,15 @@ def two_hop_cluster(
             cfg.scatter_fallback,
         )
         if use_scatter:
-            fav, fav_w, _ = best_from_slots(
-                slot_label, slot_w, labels, cluster_weights, graph.node_w,
-                max_cluster_weight.expand(C), seed, require_fit=False,
-            )
             favored = torch.where(fully_rated & (fav_w > 0), fav, -1)
         else:
             favored = sort_favored()
     elif engine == "sort2":
-        top = rating_top3_by_sort(graph, neighbor_cluster, seed, k_best=1)
+        top = rating_top3_by_sort(graph, neighbor_cluster(), seed, k_best=1)
         favored = torch.where(top[1] > 0, top[0], -1)
     elif engine == "hash":
         slot_label, slot_w = hashed_rating_table(
-            graph.src, neighbor_cluster, graph.edge_w, n_pad,
+            graph.src, neighbor_cluster(), graph.edge_w, n_pad,
             cfg.num_slots, seed,
         )
         favored, fav_w = best_from_rating_table(

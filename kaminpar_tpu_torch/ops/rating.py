@@ -5,6 +5,9 @@
 torch; `best_from_slots` is kernel K3, the per-row rate + arg-max over
 that table (the port of the TPU kernel `best_from_slots_pallas`, with the
 feasibility mask of the masked `best_from_slots` folded in).
+`scatter_best_from_slots` is the fused K3 the scatter engine runs: one
+kernel builds each row's slot table in shared memory from the row's span
+and rates it, so the table never reaches device memory.
 """
 
 from __future__ import annotations
@@ -16,7 +19,7 @@ import torch
 
 from .. import _native
 from ..dtypes import ACC_DTYPE, INT32_MIN
-from .gather import _require_i32_on, _stream
+from .gather import MAX_RATING_SLOTS, _require_i32_on, _stream, span_slots
 from .segments import (  # noqa: F401  (re-exported rating surface)
     _cumsum32,
     _lexmax_rows,
@@ -72,6 +75,21 @@ def select_engine(
     return "sort", f"{scatter_reject}; no row spans (sharded COO)"
 
 
+def _label_bits(n_pad: int, num_slots: int) -> int:
+    """Bits of a slot table's winner key that hold the label (labels are
+    rows: label_space = n_pad); raises where the table or the key does not
+    fit int32."""
+    if n_pad * num_slots >= 2**30:
+        raise ValueError("n_pad * num_slots must stay well inside int32")
+    label_bits = max(int(n_pad - 1).bit_length(), 1)
+    if 31 - label_bits < 4:
+        raise ValueError(
+            f"label_space={n_pad} leaves {31 - label_bits} winner-key "
+            "bits; use the sort engine at this scale"
+        )
+    return label_bits
+
+
 def scatter_slot_ratings(
     owner: torch.Tensor,
     neighbor_label: torch.Tensor,
@@ -91,16 +109,9 @@ def scatter_slot_ratings(
     labels still contested after both passes leave their row not fully
     rated."""
     label_space = n_pad
-    if n_pad * num_slots >= 2**30:
-        raise ValueError("n_pad * num_slots must stay well inside int32")
-    total = n_pad * num_slots
-    label_bits = max(int(label_space - 1).bit_length(), 1)
+    label_bits = _label_bits(n_pad, num_slots)
     key_bits = 31 - label_bits
-    if key_bits < 4:
-        raise ValueError(
-            f"label_space={label_space} leaves {key_bits} winner-key "
-            "bits; use the sort engine at this scale"
-        )
+    total = n_pad * num_slots
     lab_mask = (1 << label_bits) - 1
     nb_c = neighbor_label.clamp(0, label_space - 1)
     ok = neighbor_label >= 0
@@ -264,3 +275,125 @@ def best_from_slots(
 
 
 best_from_slots.launches = 0
+
+
+# --------------------------------------------------------------------------
+# fused K3
+# --------------------------------------------------------------------------
+
+# the largest num_slots the fused kernel takes (its tables are 4 *
+# num_slots int32 per row in shared memory)
+MAX_FUSED_SLOTS = 256
+
+
+def scatter_best_from_slots_twin(
+    start: torch.Tensor,
+    end: torch.Tensor,
+    dst_b: torch.Tensor,
+    w_b: torch.Tensor,
+    labels: torch.Tensor,
+    cluster_weights: torch.Tensor,
+    node_w: torch.Tensor,
+    cap: torch.Tensor,
+    num_slots: int,
+    salt,
+    require_fit: bool = True,
+    communities: torch.Tensor | None = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain torch version of the fused K3: scatter_slot_ratings over the
+    slots of each row's clipped span, then best_from_slots_twin (the JAX
+    package's lp.py composition)."""
+    n_pad = labels.shape[0]
+    rows, slot, length = span_slots(start, end, dst_b.shape[0], n_pad)
+    nb = labels[dst_b[slot].clamp(0, n_pad - 1)]
+    first = torch.cumsum(length, 0) - length
+    slot_label, slot_w, fully_rated = scatter_slot_ratings(
+        rows, nb, w_b[slot], n_pad, num_slots, salt,
+        spans=(first, first + length),
+    )
+    best, best_w, w_own = best_from_slots_twin(
+        slot_label, slot_w, labels, cluster_weights, node_w, cap, salt,
+        communities=communities, require_fit=require_fit,
+    )
+    return best, best_w, w_own, fully_rated
+
+
+def scatter_best_from_slots(
+    start: torch.Tensor,
+    end: torch.Tensor,
+    dst_b: torch.Tensor,
+    w_b: torch.Tensor,
+    labels: torch.Tensor,
+    cluster_weights: torch.Tensor,
+    node_w: torch.Tensor,
+    cap: torch.Tensor,
+    num_slots: int,
+    salt,
+    require_fit: bool = True,
+    communities: torch.Tensor | None = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Per row u, the scatter engine's rating of the edges in its span
+    [start[u], end[u]) of the buffer (dst_b, w_b), clipped to the buffer:
+    (best i32, best_w i32, w_own i32, fully_rated bool), each [n_pad],
+    n_pad = len(labels).  Exactly scatter_slot_ratings(...) followed by
+    best_from_slots(..., tie salt = `salt`); the neighbour labels
+    labels[dst_b] are gathered by the kernel.  `communities` is not on
+    the default path: only the twin (CPU) supports it."""
+    if dst_b.device.type == "cpu":
+        return scatter_best_from_slots_twin(
+            start, end, dst_b, w_b, labels, cluster_weights, node_w, cap,
+            num_slots, salt, require_fit=require_fit,
+            communities=communities,
+        )
+    if communities is not None:
+        raise NotImplementedError(
+            "scatter_best_from_slots kernel: communities is not supported "
+            "on CUDA"
+        )
+    if not 1 <= num_slots <= MAX_FUSED_SLOTS:
+        raise ValueError(f"scatter_best_from_slots kernel: num_slots="
+                         f"{num_slots} outside [1, {MAX_FUSED_SLOTS}]")
+    n_pad = labels.shape[0]
+    label_bits = _label_bits(n_pad, num_slots)
+    C = cluster_weights.shape[0]
+    cap = cap.expand(C).to(torch.int32)
+    start, end, dst_b, w_b, labels, cluster_weights, node_w, cap = (
+        t.contiguous() for t in
+        (start, end, dst_b, w_b, labels, cluster_weights, node_w, cap)
+    )
+    dev = dst_b.device
+    _require_i32_on(dev, start, end, dst_b, w_b, labels, cluster_weights,
+                    node_w, cap)
+    if not (start.shape == end.shape == node_w.shape == (n_pad,)):
+        raise ValueError("start, end and node_w must have n_pad entries")
+    if dst_b.shape != w_b.shape or dst_b.dim() != 1:
+        raise ValueError("dst_b and w_b must be one 1-D shape")
+    slots = dst_b.numel()
+    if slots > MAX_RATING_SLOTS:
+        raise ValueError(f"scatter_best_from_slots: {slots} slots exceed "
+                         "the kernel's int32 slot index")
+    best = torch.empty(n_pad, dtype=torch.int32, device=dev)
+    best_w = torch.empty_like(best)
+    w_own = torch.empty_like(best)
+    fully_rated = torch.empty(n_pad, dtype=torch.bool, device=dev)
+    heavy = torch.empty(n_pad + 1, dtype=torch.int32, device=dev)
+    vp, c_int = ctypes.c_void_p, ctypes.c_int
+    fn = _native.bind(
+        "best_from_slots.cu", "kp_scatter_best_from_slots",
+        (vp,) * 13 + (c_int,) * 5 + (ctypes.c_uint, c_int, vp),
+    )
+    with _native.timed("scatter_best_from_slots"):
+        code = fn(
+            start.data_ptr(), end.data_ptr(), dst_b.data_ptr(),
+            w_b.data_ptr(), labels.data_ptr(), cluster_weights.data_ptr(),
+            node_w.data_ptr(), cap.data_ptr(), best.data_ptr(),
+            best_w.data_ptr(), w_own.data_ptr(), fully_rated.data_ptr(),
+            heavy.data_ptr(), n_pad, slots, C, num_slots, label_bits,
+            int(salt) & 0xFFFFFFFF, int(bool(require_fit)), _stream(),
+        )
+    _native.check(code, "scatter_best_from_slots")
+    scatter_best_from_slots.launches += 1
+    return best, best_w, w_own, fully_rated
+
+
+scatter_best_from_slots.launches = 0
