@@ -90,6 +90,30 @@ def time_ms(fn, torch, reps: int = 10, warmup: int = 3,
     return float(statistics.median(times))
 
 
+def device_ms(fn, torch, reps: int = 20) -> tuple[float, dict]:
+    """Device time of one call: the summed time of every kernel and memset
+    the call ran on the card, from torch.profiler over `reps` calls after
+    warm-up, and that time per kernel name.  Unlike time_ms it leaves out
+    the gaps the host leaves between launches, which a wrapper whose host
+    work outlasts its kernels would otherwise be charged."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    per = {ev.key: ev.device_time_total / reps / 1e3  # microseconds
+           for ev in prof.key_averages()
+           if ev.device_type == torch.autograd.DeviceType.CUDA}
+    if not per:
+        fail("torch.profiler recorded no device time")
+    return sum(per.values()), per
+
+
 def bound_ms(nbytes: int, ops: int) -> tuple[float, str]:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / INT_OPS_PER_S * 1e3
@@ -182,7 +206,8 @@ def main() -> None:
         "source": "kaminpar_tpu_torch/csrc/gather.cu",
         "replaces": "kaminpar_tpu/ops/lane_gather.py:268",
         "max_abs_err": max_abs_err(out, ref),
-        "ms": time_ms(lambda: gather.gather_i32(labels, dg.dst), torch),
+        "ms": device_ms(lambda: gather.gather_i32(labels, dg.dst), torch)[0],
+        "call_ms": time_ms(lambda: gather.gather_i32(labels, dg.dst), torch),
         "plain_ms": time_ms(
             lambda: gather.gather_i32_twin(labels, dg.dst), torch),
         "bound_ms": b, "bound_by": by,
@@ -215,7 +240,10 @@ def main() -> None:
         "source": "kaminpar_tpu_torch/csrc/dense_ratings.cu",
         "replaces": "kaminpar_tpu/ops/lane_gather.py:268",
         "max_abs_err": max_abs_err(out, ref),
-        "ms": time_ms(lambda: gather.dense_block_ratings(*args2), torch),
+        "ms": device_ms(lambda: gather.dense_block_ratings(*args2),
+                        torch)[0],
+        "call_ms": time_ms(lambda: gather.dense_block_ratings(*args2),
+                           torch),
         "plain_ms": time_ms(
             lambda: gather.dense_block_ratings_twin(*args2), torch),
         "bound_ms": b, "bound_by": by,
@@ -366,7 +394,8 @@ def check_k3(core, kp, gather, rating, segments, Coarsener,
         "source": "kaminpar_tpu_torch/csrc/best_from_slots.cu",
         "replaces": "kaminpar_tpu/ops/rating.py:377",
         "max_abs_err": max(max_abs_err(o, r) for o, r in zip(outs, refs)),
-        "ms": time_ms(lambda: rating.best_from_slots(*args3), torch),
+        "ms": device_ms(lambda: rating.best_from_slots(*args3), torch)[0],
+        "call_ms": time_ms(lambda: rating.best_from_slots(*args3), torch),
         "plain_ms": time_ms(
             lambda: rating.best_from_slots_twin(*args3), torch),
         "bound_ms": b, "bound_by": by,
@@ -440,23 +469,29 @@ def check_k3(core, kp, gather, rating, segments, Coarsener,
 
     b, by = k3_bound_ms(dg.n_pad, dg.m, num_slots)
     hub_b, _ = k3_bound_ms(1 << 16, hub_m, num_slots)
+    ms, split = device_ms(
+        lambda: rating.scatter_best_from_slots(*fused_args), torch)
+    hub_ms, hub_split = device_ms(
+        lambda: rating.scatter_best_from_slots(*hub_args), torch)
     fused = {
         "name": "scatter_best_from_slots", "route": "cuda",
         "source": "kaminpar_tpu_torch/csrc/best_from_slots.cu",
         "replaces": "kaminpar_tpu/ops/rating.py:377",
         "max_abs_err": max(err, err4, err_d, err_h),
-        "ms": time_ms(lambda: rating.scatter_best_from_slots(*fused_args),
-                      torch),
+        "ms": ms,
+        "call_ms": time_ms(
+            lambda: rating.scatter_best_from_slots(*fused_args), torch),
         "plain_ms": time_ms(
             lambda: rating.scatter_best_from_slots_twin(*fused_args), torch,
             reps=5),
         "bound_ms": b, "bound_by": by,
         "library_ms": None,
-        "replaced_ms": time_ms(replaced, torch, reps=5),
-        "replaced_gather_ms": time_ms(
-            lambda: gather.gather_i32(ids, dg.dst), torch),
-        "hub_ms": time_ms(
-            lambda: rating.scatter_best_from_slots(*hub_args), torch),
+        "split_ms": split,
+        "replaced_ms": device_ms(replaced, torch, reps=5)[0],
+        "replaced_call_ms": time_ms(replaced, torch, reps=5),
+        "replaced_gather_ms": device_ms(
+            lambda: gather.gather_i32(ids, dg.dst), torch)[0],
+        "hub_ms": hub_ms, "hub_split_ms": hub_split,
         "hub_bound_ms": hub_b,
         "shape": {"graph": "medium", "rows": dg.n_pad, "edges": dg.m,
                   "num_slots": num_slots, "hub_edges": hub_m},

@@ -12,8 +12,8 @@
 //   best = that label and its weight, or -1 / INT32_MIN when no slot is
 //   feasible or the best weight is INT32_MIN.
 // That lexicographic max is exactly the JAX three-stage reduction (max
-// weight, then max hash among the tied, then max label).  kp_row_best is
-// that reduction for one row, by one warp; both kernels below call it.
+// weight, then max hash among the tied, then max label).  RowArgmax is
+// that reduction for one row, by one warp; every kernel below uses it.
 //
 // Standalone (kp_best_from_slots): the table comes from device memory.
 // Bound on the H100: bytes.  The two slot tables (n_pad * S * 8 bytes)
@@ -46,7 +46,11 @@
 // and the row's lost flag, (4) the arg-max; a barrier separates them.
 // Light rows (at most kLightMax edges, most rows) take one warp each, the
 // edges held in registers across the phases, kLightEdges per lane; the
-// warp appends a longer row to a device-side list instead.  A second
+// warp appends a longer row to a device-side list instead.  A light row is
+// bound by the instructions it issues, not by memory: its loops stop at
+// its last edge, a power-of-two num_slots takes a mask instead of `%`,
+// and its arg-max reads the slots its edges won (ceil(L / 32) per lane)
+// instead of all 2 num_slots.  A second
 // kernel, launched behind the first with no host sync, walks that list
 // with a grid-stride loop, one whole block (kHeavyThreads) per heavy row:
 // the row's edges are re-read in each phase (L1/L2 hits), kUnroll per
@@ -80,19 +84,28 @@ struct RowBest {
   int32_t best, best_w, w_own;
 };
 
-// The row reduction by one warp (all 32 lanes call it; every lane gets
-// the result).  slots(j, &label, &weight) reads slot j of the row's S.
-template <class Slots>
-__device__ __forceinline__ RowBest kp_row_best(
-    const Slots& slots, int S, int32_t own, int32_t nw,
-    const int32_t* __restrict__ cw, const int32_t* __restrict__ cap, int C,
-    uint32_t salt, int require_fit) {
-  const int lane = threadIdx.x & 31;
-  int32_t w_own = 0;
-  int32_t bw = KP_INT32_MIN, bh = -1, bl = -1;
-  for (int j = lane; j < S; j += 32) {
-    int32_t lab, w;
-    slots(j, lab, w);
+// The row reduction, split in two so that both kernels share it: each
+// lane of a warp add()s the candidates (label, weight) it sees, then
+// result() merges the 32 lanes (all of them call it; every lane gets the
+// row's result).  A candidate repeated, or an empty slot (label -1,
+// weight 0), leaves the result as it is.
+struct RowArgmax {
+  int32_t own, nw;
+  const int32_t* __restrict__ cw;
+  const int32_t* __restrict__ cap;
+  int C;
+  uint32_t salt;
+  int require_fit;
+  int32_t w_own = 0, bw = KP_INT32_MIN, bh = -1, bl = -1;
+
+  __device__ __forceinline__ RowArgmax(int32_t own_, int32_t nw_,
+                                       const int32_t* cw_,
+                                       const int32_t* cap_, int C_,
+                                       uint32_t salt_, int require_fit_)
+      : own(own_), nw(nw_), cw(cw_), cap(cap_), C(C_), salt(salt_),
+        require_fit(require_fit_) {}
+
+  __device__ __forceinline__ void add(int32_t lab, int32_t w) {
     if (lab == own && w > w_own) w_own = w;
     bool feas = lab >= 0 && lab != own;
     if (feas && require_fit) {
@@ -109,20 +122,36 @@ __device__ __forceinline__ RowBest kp_row_best(
       }
     }
   }
-  for (int off = 16; off > 0; off >>= 1) {
-    const int32_t ow = __shfl_xor_sync(0xffffffffu, bw, off);
-    const int32_t oh = __shfl_xor_sync(0xffffffffu, bh, off);
-    const int32_t ol = __shfl_xor_sync(0xffffffffu, bl, off);
-    const int32_t oo = __shfl_xor_sync(0xffffffffu, w_own, off);
-    if (kp_better(ow, oh, ol, bw, bh, bl)) {
-      bw = ow;
-      bh = oh;
-      bl = ol;
+
+  __device__ __forceinline__ RowBest result() {
+    for (int off = 16; off > 0; off >>= 1) {
+      const int32_t ow = __shfl_xor_sync(0xffffffffu, bw, off);
+      const int32_t oh = __shfl_xor_sync(0xffffffffu, bh, off);
+      const int32_t ol = __shfl_xor_sync(0xffffffffu, bl, off);
+      const int32_t oo = __shfl_xor_sync(0xffffffffu, w_own, off);
+      if (kp_better(ow, oh, ol, bw, bh, bl)) {
+        bw = ow;
+        bh = oh;
+        bl = ol;
+      }
+      if (oo > w_own) w_own = oo;
     }
-    if (oo > w_own) w_own = oo;
+    const bool has = bl >= 0 && bw > KP_INT32_MIN;
+    return RowBest{has ? bl : -1, has ? bw : KP_INT32_MIN, w_own};
   }
-  const bool has = bl >= 0 && bw > KP_INT32_MIN;
-  return RowBest{has ? bl : -1, has ? bw : KP_INT32_MIN, w_own};
+};
+
+// The row reduction over a table of S slots by one warp: slots(j,
+// &label, &weight) reads slot j.
+template <class Slots>
+__device__ __forceinline__ RowBest kp_row_best(const Slots& slots, int S,
+                                               RowArgmax acc) {
+  for (int j = threadIdx.x & 31; j < S; j += 32) {
+    int32_t lab, w;
+    slots(j, lab, w);
+    acc.add(lab, w);
+  }
+  return acc.result();
 }
 
 // ---------------------------------------------------------- standalone K3
@@ -151,8 +180,8 @@ __global__ void best_from_slots_kernel(
   for (long long row = first; row < n_rows; row += step) {
     const RowBest r = kp_row_best(
         GlobalSlots{slot_label + row * S, slot_w + row * S}, S,
-        __ldg(labels + row), __ldg(node_w + row), cw, cap, C, salt,
-        require_fit);
+        RowArgmax(__ldg(labels + row), __ldg(node_w + row), cw, cap, C, salt,
+                  require_fit));
     if ((threadIdx.x & 31) == 0) {
       out_best[row] = r.best;
       out_w[row] = r.best_w;
@@ -189,7 +218,7 @@ namespace {
 constexpr int kLightThreads = 256;            // 8 warps, one row each
 constexpr int kLightEdges = 8;                // edges per lane in registers
 constexpr int kLightMax = 32 * kLightEdges;   // longest row a warp takes
-constexpr int kHeavyThreads = 512;            // one block per heavy row
+constexpr int kHeavyThreads = 1024;           // one block per heavy row
 constexpr int kUnroll = 4;                    // heavy: edges in flight
 constexpr int kMaxFusedSlots = 256;           // num_slots the kernel takes
 
@@ -208,6 +237,7 @@ struct Fused {
   uint8_t* out_full;
   int32_t* heavy;  // heavy[0]: count; heavy[1 + i]: the i-th heavy row
   int n, D, C, num_slots, label_bits;
+  int slot_mask;  // num_slots - 1 when a power of two, else -1
   uint32_t salt1, salt2, ksalt1, ksalt2;
   int require_fit;
 };
@@ -247,8 +277,12 @@ __device__ __forceinline__ int32_t edge_label(const Fused& p, int32_t d) {
   return lab < 0 ? -1 : (lab >= p.n ? p.n - 1 : lab);
 }
 
-__device__ __forceinline__ int slot_of(int32_t nb, uint32_t salt, int S1) {
-  return kp_hash_u32(nb, salt) % S1;
+// hash_u32(nb, salt) % num_slots; the hash is non-negative, so a power
+// of two takes a mask (an integer division costs some twenty instructions)
+__device__ __forceinline__ int slot_of(int32_t nb, uint32_t salt,
+                                       const Fused& p) {
+  const int32_t h = kp_hash_u32(nb, salt);
+  return p.slot_mask >= 0 ? (h & p.slot_mask) : h % p.num_slots;
 }
 
 __device__ __forceinline__ int32_t key_of(int32_t nb, uint32_t ksalt,
@@ -265,13 +299,9 @@ __device__ __forceinline__ void write_row(const Fused& p, int row,
   p.out_full[row] = full ? 1 : 0;
 }
 
-__device__ __forceinline__ RowBest reduce_row(const Fused& p, int row,
-                                              const int32_t* key,
-                                              const int32_t* w) {
-  const int32_t lab_mask = (int32_t)((1u << p.label_bits) - 1u);
-  return kp_row_best(KeySlots{key, w, lab_mask}, 2 * p.num_slots,
-                     __ldg(p.labels + row), __ldg(p.node_w + row), p.cw,
-                     p.cap, p.C, p.salt1, p.require_fit);
+__device__ __forceinline__ RowArgmax row_argmax(const Fused& p, int row) {
+  return RowArgmax(__ldg(p.labels + row), __ldg(p.node_w + row), p.cw, p.cap,
+                   p.C, p.salt1, p.require_fit);
 }
 
 // Shared memory: per warp, key[2 S1] then w[2 S1].
@@ -300,15 +330,21 @@ fused_light_kernel(Fused p) {
       if (lane == 0) p.heavy[1 + atomicAdd(p.heavy, 1)] = row;
       continue;
     }
+    // register u of a lane holds edge s + lane + 32 u; the loops stop at
+    // the row's last register, a branch that the warp takes as one.
+    // nb: the edge's label, or -1 when it does not count.  slot: the
+    // edge's slot in pass 1 (< S1) or pass 2 (>= S1), -1 once it lost both.
     int32_t nb[kLightEdges], we[kLightEdges], slot[kLightEdges];
 #pragma unroll
     for (int u = 0; u < kLightEdges; ++u) {
+      if (32 * u >= L) break;
       const int j = s + lane + 32 * u;
       we[u] = j < e ? __ldg(p.w + j) : 0;
       slot[u] = j < e ? target(p, j) : -1;  // the target, for now
     }
 #pragma unroll
     for (int u = 0; u < kLightEdges; ++u) {
+      if (32 * u >= L) break;
       nb[u] = slot[u] >= 0 ? edge_label(p, slot[u]) : -1;
     }
     for (int j = lane; j < S; j += 32) {
@@ -319,8 +355,9 @@ fused_light_kernel(Fused p) {
     // (1) pass-1 winner keys
 #pragma unroll
     for (int u = 0; u < kLightEdges; ++u) {
+      if (32 * u >= L) break;
       if (nb[u] >= 0) {
-        slot[u] = slot_of(nb[u], p.salt1, S1);
+        slot[u] = slot_of(nb[u], p.salt1, p);
         atomicMax(key + slot[u], key_of(nb[u], p.ksalt1, p));
       }
     }
@@ -328,12 +365,12 @@ fused_light_kernel(Fused p) {
     // (2) pass-1 weights; the losers' pass-2 keys
 #pragma unroll
     for (int u = 0; u < kLightEdges; ++u) {
+      if (32 * u >= L) break;
       if (nb[u] >= 0) {
         if ((key[slot[u]] & lab_mask) == nb[u]) {
           atomicAdd(wt + slot[u], we[u]);
-          nb[u] = -1;  // rated: out of pass 2
         } else {
-          slot[u] = S1 + slot_of(nb[u], p.salt2, S1);
+          slot[u] = S1 + slot_of(nb[u], p.salt2, p);
           atomicMax(key + slot[u], key_of(nb[u], p.ksalt2, p));
         }
       }
@@ -343,18 +380,29 @@ fused_light_kernel(Fused p) {
     bool lost = false;
 #pragma unroll
     for (int u = 0; u < kLightEdges; ++u) {
-      if (nb[u] >= 0) {
+      if (32 * u >= L) break;
+      if (nb[u] >= 0 && slot[u] >= S1) {
         if ((key[slot[u]] & lab_mask) == nb[u]) {
           atomicAdd(wt + slot[u], we[u]);
         } else {
           lost = true;
+          slot[u] = -1;
         }
       }
     }
     const bool full = !__any_sync(0xffffffffu, lost);
     __syncwarp();
-    // (4) the arg-max
-    const RowBest r = reduce_row(p, row, key, wt);
+    // (4) the arg-max.  Every slot that holds a label holds it for the
+    // edges that won it, so the lanes offer their winning edges' slots
+    // instead of the 2 S1 slots: a row of L edges reads ceil(L / 32)
+    // candidates per lane rather than 2 S1 / 32.
+    RowArgmax acc = row_argmax(p, row);
+#pragma unroll
+    for (int u = 0; u < kLightEdges; ++u) {
+      if (32 * u >= L) break;
+      if (nb[u] >= 0 && slot[u] >= 0) acc.add(nb[u], wt[slot[u]]);
+    }
+    const RowBest r = acc.result();
     if (lane == 0) write_row(p, row, r, full);
     __syncwarp();  // the next row's reset waits for every lane's reads
   }
@@ -397,7 +445,7 @@ fused_heavy_kernel(Fused p) {
         for (int u = 0; u < kUnroll; ++u) {
           if (nb[u] < 0) continue;
           const int j = base + u * kHeavyThreads;
-          const int s1 = slot_of(nb[u], p.salt1, S1);
+          const int s1 = slot_of(nb[u], p.salt1, p);
           if (phase == 1) {
             atomicMax(key + s1, key_of(nb[u], p.ksalt1, p));
             continue;
@@ -408,7 +456,7 @@ fused_heavy_kernel(Fused p) {
             continue;
           }
           if (win1) continue;
-          const int s2 = S1 + slot_of(nb[u], p.salt2, S1);
+          const int s2 = S1 + slot_of(nb[u], p.salt2, p);
           if (phase == 2) {
             atomicMax(key + s2, key_of(nb[u], p.ksalt2, p));
           } else if ((key[s2] & lab_mask) == nb[u]) {
@@ -422,7 +470,8 @@ fused_heavy_kernel(Fused p) {
     }
     const bool full = __syncthreads_or(lost) == 0;
     if (threadIdx.x < 32) {
-      const RowBest r = reduce_row(p, row, key, wt);
+      const RowBest r = kp_row_best(KeySlots{key, wt, lab_mask}, S,
+                                    row_argmax(p, row));
       if (threadIdx.x == 0) write_row(p, row, r, full);
     }
     __syncthreads();  // the next row's reset waits for the reduction
@@ -466,6 +515,7 @@ extern "C" int kp_scatter_best_from_slots(
   p.C = C;
   p.num_slots = num_slots;
   p.label_bits = label_bits;
+  p.slot_mask = (num_slots & (num_slots - 1)) == 0 ? num_slots - 1 : -1;
   p.salt1 = salt;
   p.salt2 = salt ^ 0x5851F42Du;
   p.ksalt1 = p.salt1 ^ 0x3779B97Fu;
@@ -486,7 +536,7 @@ extern "C" int kp_scatter_best_from_slots(
   long long most = (long long)D / (kLightMax + 1);
   if (most > n) most = n;
   if (most > 0) {
-    long long hb = most < 132LL * 4 ? most : 132LL * 4;
+    long long hb = most < 132LL * 2 ? most : 132LL * 2;
     fused_heavy_kernel<<<(unsigned)hb, kHeavyThreads,
                          (size_t)4 * num_slots * sizeof(int32_t), st>>>(p);
   }
