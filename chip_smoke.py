@@ -335,8 +335,9 @@ def check_k3(core, kp, gather, rating, segments, Coarsener,
     """K3 on the medium graph's level 0: the standalone kernel on the
     slot table of scatter_slot_ratings, and the fused kernel on the level's
     spans, each held against its twin; the fused one also at num_slots 4
-    (contested rows), on hub rows of 45k edges and on delta spans cut at
-    the buffer.  Returns both kernels' entries of the JSON line."""
+    (contested rows) and 48 (no power of two), on hub rows of 45k edges
+    and on delta spans cut at the buffer.  Returns both kernels' entries
+    of the JSON line."""
     dg = device_graph_from_host(core, dev)
     ctx = kp.context_from_preset("default")
     ctx.partition.setup(core, k=K_MAIN, epsilon=0.03)
@@ -404,7 +405,7 @@ def check_k3(core, kp, gather, rating, segments, Coarsener,
     }
     del outs, refs, outs_nf, refs_nf
 
-    # -- fused: the level's spans at the path's num_slots and at 4
+    # -- fused: the level's spans, then the edge cases
     def fused_case(what, args, blind=False, contested=False):
         err = 0
         out = {}
@@ -431,6 +432,8 @@ def check_k3(core, kp, gather, rating, segments, Coarsener,
                               blind=True)
     err4, unrated4 = fused_case("level 0, num_slots 4", (*level, 4, salt),
                                 blind=True, contested=True)
+    # a num_slots that is not a power of two takes `%` instead of a mask
+    err48, _ = fused_case("level 0, num_slots 48", (*level, 48, salt))
     # a delta round over 60% of the rows in a buffer of a quarter of the
     # slots (LP's delta size): the spans run past the buffer
     active = torch.from_numpy(rng.random(dg.n_pad) < 0.6).to(dev)
@@ -477,7 +480,7 @@ def check_k3(core, kp, gather, rating, segments, Coarsener,
         "name": "scatter_best_from_slots", "route": "cuda",
         "source": "kaminpar_tpu_torch/csrc/best_from_slots.cu",
         "replaces": "kaminpar_tpu/ops/rating.py:377",
-        "max_abs_err": max(err, err4, err_d, err_h),
+        "max_abs_err": max(err, err4, err48, err_d, err_h),
         "ms": ms,
         "call_ms": time_ms(
             lambda: rating.scatter_best_from_slots(*fused_args), torch),
@@ -489,8 +492,6 @@ def check_k3(core, kp, gather, rating, segments, Coarsener,
         "split_ms": split,
         "replaced_ms": device_ms(replaced, torch, reps=5)[0],
         "replaced_call_ms": time_ms(replaced, torch, reps=5),
-        "replaced_gather_ms": device_ms(
-            lambda: gather.gather_i32(ids, dg.dst), torch)[0],
         "hub_ms": hub_ms, "hub_split_ms": hub_split,
         "hub_bound_ms": hub_b,
         "shape": {"graph": "medium", "rows": dg.n_pad, "edges": dg.m,

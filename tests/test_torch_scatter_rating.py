@@ -234,8 +234,8 @@ def test_dispatch_cpu_twin_and_card_path(graphs, monkeypatch):
 def test_fused_kernel_matches_twin_on_card():
     """The fused kernel against its twin on the same CUDA tensors: light
     rows beside hub rows of 45k edges (the block-per-row kernel), at the
-    path's slot counts and at 4 (contested rows), and delta spans cut at
-    the buffer."""
+    path's slot counts, at 4 (contested rows) and at 48 (no power of
+    two), and with spans cut at a buffer that ends inside a hub row."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card (and nvcc) to build and run the "
                     "CUDA kernels")
@@ -258,7 +258,7 @@ def test_fused_kernel_matches_twin_on_card():
     spans = (t(row_ptr[:-1]), t(row_ptr[1:]))
     # the whole buffer, and one that ends inside the first hub's span
     buffers = ((dst, w), (dst[:30_000], w[:30_000]))
-    for num_slots in (4, 32, 64):
+    for num_slots in (4, 32, 48, 64):  # 48 takes `%`, not a mask
         for label_range in (n, 300):
             labels = t(gen.integers(-1, label_range, n))
             for dst_b, w_b in buffers:
