@@ -40,7 +40,7 @@
 // Bound on the H100: bytes.  Spans (8 n), each span edge's dst and w and
 // its label gather (12 per edge), labels, node weights, cluster weights
 // and caps (16 n) and the outputs (13 n); the operations (three hashes and
-// a few compares per edge, one hash per slot) are under half of that time.
+// a few compares per edge, one hash per slot) take about 60% of that time.
 // Design: the phases of a row are (1) pass-1 winner keys, (2) pass-1
 // weights and the pass-2 keys of the edges that lost, (3) pass-2 weights
 // and the row's lost flag, (4) the arg-max; a barrier separates them.
@@ -50,12 +50,12 @@
 // bound by the instructions it issues, not by memory: its loops stop at
 // its last edge, a power-of-two num_slots takes a mask instead of `%`,
 // and its arg-max reads the slots its edges won (ceil(L / 32) per lane)
-// instead of all 2 num_slots.  A second
-// kernel, launched behind the first with no host sync, walks that list
-// with a grid-stride loop, one whole block (kHeavyThreads) per heavy row:
-// the row's edges are re-read in each phase (L1/L2 hits), kUnroll per
-// thread in flight, so a hub row of thousands of edges takes a few passes
-// of the block rather than one warp's hundreds.
+// instead of all 2 num_slots.  A second kernel, launched behind the first
+// with no host sync, walks the list with a grid-stride loop, one whole
+// block (kHeavyThreads) per heavy row: the row's edges are re-read in each
+// phase (L1/L2 hits), kUnroll per thread in flight, so a hub row of
+// thousands of edges takes a few passes of the block rather than one
+// warp's hundreds.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
