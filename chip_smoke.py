@@ -6,8 +6,9 @@ Run from the root of a checkout on a machine with one NVIDIA card:
 
 Phases, each fatal on failure:
   1. print the card's name and power limit (nvidia-smi);
-  2. build the hand-written CUDA kernels (one nvcc per source, in
-     parallel) and the native initial bipartitioner (g++, ip.cpp);
+  2. build the hand-written CUDA kernels (one nvcc per source) and the two
+     native host libraries (g++: ip.cpp, the initial bipartitioner, and
+     fm.cpp, the k-way FM), all at once;
   3. run every kernel at the shapes the main path gives it, hold it
      bitwise against its plain torch twin on the same CUDA tensors, and
      time kernel, twin and (where one exists) a single PyTorch library
@@ -30,6 +31,23 @@ Phases, each fatal on failure:
      the path (K1, K2, the fused K3) must have launched during the phase,
      and the native initial bipartitioner in each cell.  Every launch is
      bracketed by CUDA events, summed per kernel and cell as `path_ms`;
+  7a. the slice's other paths at n = 2^14: make_rmat(1<<14, 120_000,
+     seed=3) at k=8 on the CPU and on the card with the `strong` preset
+     (native FM), `mtkahypar-kway` (the k-way scheme), `vcycle` and `deep`
+     with four host workers: each pair of partitions bitwise equal, and
+     the native FM run in both `strong` runs;
+  7b. those paths at full width: `strong`, `mtkahypar-kway` and `vcycle`
+     on the medium graph, k=16, eps=0.03, seed=1, each checked as in
+     phase 5, with its cut held against the JAX package's cut for the
+     same graph, preset and seed (EXPECTED_PRESET_CUTS); the path's
+     kernels must launch in each run, whose launches and `path_ms` are
+     counted from zero.  `strong` on the large graph is left out: its
+     single-threaded host FM passes over 572,702 nodes ran past 240 s
+     (PERF.md);
+  7c. the fused K3 with `communities=` (the v-cycle's restriction) at the
+     medium level 0, the communities a 16-block partition of phase 5:
+     bitwise against its twin, with rows whose best label the mask
+     changes, and timed beside the call without communities;
   6. print the per-kernel JSON line, then the final status line.
 
 The rating engine is chosen per level from the graph's density: the large
@@ -50,6 +68,7 @@ import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
@@ -62,6 +81,16 @@ K_MAIN = 16
 # arithmetic with hashed tie-breaks, and every run of the port since its
 # native IP (PERF.md) gave these; another cut is another partition
 EXPECTED_CUTS = {"large": 2_971_596, "medium": 250_236}
+# the slice's presets on the medium graph, k=16, eps=0.03, seed=1: the
+# cuts of the JAX package's CPU runs (PERF.md gives the command), the
+# only link between a card run and the reference
+EXPECTED_PRESET_CUTS = {
+    ("medium", "strong"): 244_663,
+    ("medium", "mtkahypar-kway"): 250_650,
+    ("medium", "vcycle"): 247_293,
+}
+# seconds since the script started, printed with each partition run
+T_START = time.perf_counter()
 
 
 def fail(msg: str) -> None:
@@ -114,6 +143,13 @@ def device_ms(fn, torch, reps: int = 20) -> tuple[float, dict]:
     return sum(per.values()), per
 
 
+def timed_s(fn) -> float:
+    """Seconds `fn()` takes on the host clock."""
+    t0 = time.perf_counter()
+    fn()
+    return round(time.perf_counter() - t0, 3)
+
+
 def bound_ms(nbytes: int, ops: int) -> tuple[float, str]:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / INT_OPS_PER_S * 1e3
@@ -151,13 +187,16 @@ def main() -> None:
 
     # -- 2. build
     t0 = time.perf_counter()
-    build_s = _native.build()
-    t1 = time.perf_counter()
-    native.build()
+    with ThreadPoolExecutor(max_workers=3) as pool:
+        host_libs = {src: pool.submit(timed_s, build)
+                     for src, build in (("ip.cpp", native.build),
+                                        ("fm.cpp", native.build_fm))}
+        build_s = _native.build()
+        host_s = {src: f.result() for src, f in host_libs.items()}
     print(json.dumps({"build_s": round(time.perf_counter() - t0, 3),
                       "per_source_s": {k: round(v, 3)
                                        for k, v in build_s.items()},
-                      "ip_cpp_s": round(time.perf_counter() - t1, 3)}),
+                      "host_lib_s": host_s}),
           flush=True)
 
     # -- 3. kernels vs twins at the main path's shapes
@@ -170,8 +209,8 @@ def main() -> None:
     for name, n, m, seed in main_runs:
         t0 = time.perf_counter()
         g = make_rmat(n, m, seed=seed)
-        core, _, _ = remove_isolated_nodes(g)
-        graphs[name] = (g, core)
+        core, perm, _ = remove_isolated_nodes(g)
+        graphs[name] = (g, core, perm)
         print(json.dumps({"graph": name,
                           "spec": f"make_rmat({n}, {m}, seed={seed})",
                           "n": g.n, "m": g.m, "core_n": core.n,
@@ -289,11 +328,13 @@ def main() -> None:
     for fn in counted:
         fn.launches = 0
     path_ms = {fn.__name__: {} for fn in counted}
+    main_parts = {}
     for name, n, m, seed in main_runs:
         _native.EVENT_LOG = {}
         native.ml_bipartition.calls = 0
-        run_main(name, graphs[name][0], kp, counted, dev, metrics,
-                 device_graph_from_host, torch)
+        main_parts[name] = run_main(
+            name, graphs[name][0], kp, counted, dev, metrics,
+            device_graph_from_host, torch, "default", EXPECTED_CUTS[name])
         torch.cuda.synchronize()
         for fname, events in _native.EVENT_LOG.items():
             path_ms[fname][name] = sum(a.elapsed_time(b) for a, b in events)
@@ -308,11 +349,71 @@ def main() -> None:
         if launches[fn.__name__] <= 0:
             fail(f"main path: kernel {fn.__name__} was never launched")
 
+    # -- 7a. the slice's paths at n = 2^14: CPU and card bitwise equal
+    for preset, workers in (("strong", 1), ("mtkahypar-kway", 1),
+                            ("vcycle", 1), ("default", 4)):
+        run = preset if workers == 1 else f"deep, {workers} workers"
+        parts = {}
+        for device in ("cpu", "cuda"):
+            fm_calls = native.fm_refine.calls
+            solver = kp.KaMinPar(preset, device=device)
+            solver.ctx.parallel.num_workers = workers
+            t0 = time.perf_counter()
+            parts[device] = solver.set_graph(g_small).compute_partition(
+                k=8, epsilon=0.03, seed=1)
+            fm_calls = native.fm_refine.calls - fm_calls
+            print(json.dumps({"small_run": run, "device": device,
+                              "native_fm_calls": fm_calls,
+                              "wall_s": round(time.perf_counter() - t0, 3)}),
+                  flush=True)
+            if preset == "strong" and fm_calls <= 0:
+                fail(f"n=2^14 strong on {device}: the native FM did not run")
+        if not np.array_equal(parts["cpu"], parts["cuda"]):
+            fail(f"n=2^14 {run}: CPU and CUDA partitions differ in "
+                 f"{int((parts['cpu'] != parts['cuda']).sum())} nodes")
+        print(json.dumps({"small_parity": run, "result": "bitwise-equal"}),
+              flush=True)
+
+    # -- 7b. the slice's paths at full width, each counted from zero
+    slice_runs = {}
+    for cell, preset in EXPECTED_PRESET_CUTS:
+        for fn in counted:
+            fn.launches = 0
+        _native.EVENT_LOG = {}
+        run_main(cell, graphs[cell][0], kp, counted, dev, metrics,
+                 device_graph_from_host, torch, preset,
+                 EXPECTED_PRESET_CUTS[(cell, preset)])
+        torch.cuda.synchronize()
+        run_ms = {fname: sum(a.elapsed_time(b) for a, b in events)
+                  for fname, events in _native.EVENT_LOG.items()}
+        _native.EVENT_LOG = None
+        run_launches = {fn.__name__: fn.launches for fn in counted}
+        for fn in path_kernels:
+            if run_launches[fn.__name__] <= 0:
+                fail(f"{cell}/{preset}: kernel {fn.__name__} was never "
+                     "launched")
+        slice_runs[f"{cell}/{preset}"] = (run_launches, run_ms)
+        print(json.dumps({"slice_path": f"{cell}/{preset}",
+                          "launches": run_launches, "path_ms": run_ms}),
+              flush=True)
+
+    # -- 7c. the fused K3 with communities from phase 5's medium partition
+    g_med, core_med, perm_med = graphs["medium"]
+    communities = check_k3_communities(
+        core_med, main_parts["medium"][perm_med.new_to_old[: core_med.n]],
+        kp, rating, Coarsener, device_graph_from_host, dev, torch)
+
     for entry in kernels:
         entry["launches"] = launches[entry["name"]]
         entry["path_ms"] = path_ms[entry["name"]]
+        for run, (run_launches, run_ms) in slice_runs.items():
+            entry.setdefault("path_launches", {})[run] = (
+                run_launches[entry["name"]])
+            entry["path_ms"][run] = run_ms.get(entry["name"], 0.0)
         entry["on_path"] = entry["name"] != "best_from_slots"
         entry["ok"] = True
+        if entry["name"] == "scatter_best_from_slots":
+            entry["communities"] = communities
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -500,6 +601,59 @@ def check_k3(core, kp, gather, rating, segments, Coarsener,
     return [standalone, fused]
 
 
+def check_k3_communities(core, core_part, kp, rating, Coarsener,
+                         device_graph_from_host, dev, torch) -> dict:
+    """The fused K3 with communities= at the medium graph's level 0 (every
+    node its own cluster, the level's cluster weight cap), the communities
+    a 16-block partition of the graph: bitwise against its twin, some
+    rows' best label changed by the mask, and timed beside the same call
+    without communities, in turns (without, with, with, without)."""
+    dg = device_graph_from_host(core, dev)
+    ctx = kp.context_from_preset("default")
+    ctx.partition.setup(core, k=K_MAIN, epsilon=0.03)
+    num_slots = Coarsener(ctx, dg, core.n)._level_lp_cfg(dg).num_slots
+    mcw = ctx.coarsening.max_cluster_weight(core.n, core.total_node_weight,
+                                            ctx.partition)
+    comm_np = np.full(dg.n_pad, K_MAIN, dtype=np.int32)  # pad: its own
+    comm_np[: core.n] = core_part
+    comm = torch.from_numpy(comm_np).to(dev)
+    cap = torch.full((dg.n_pad,), mcw, dtype=torch.int32, device=dev)
+    args = (dg.row_ptr[:-1], dg.row_ptr[1:], dg.dst, dg.edge_w,
+            dg.node_ids(), dg.node_w, dg.node_w, cap, num_slots, 4242)
+    err = 0
+    for fit in (True, False):
+        out = rating.scatter_best_from_slots(*args, require_fit=fit,
+                                             communities=comm)
+        ref = rating.scatter_best_from_slots_twin(*args, require_fit=fit,
+                                                  communities=comm)
+        torch.cuda.synchronize()
+        for x, y in zip(out, ref):
+            if not torch.equal(x, y):
+                fail(f"fused K3 with communities disagrees with its twin "
+                     f"(require_fit={fit})")
+            err = max(err, max_abs_err(x, y))
+    with_comm = rating.scatter_best_from_slots(*args, communities=comm)
+    free = rating.scatter_best_from_slots(*args)
+    changed = int((with_comm[0] != free[0]).sum())
+    if changed <= 0:
+        fail("fused K3 with communities: the mask changed no row's best")
+    times = {"without": [], "with": []}
+    splits = {}
+    for which in ("without", "with", "with", "without"):
+        kw = {"communities": comm} if which == "with" else {}
+        ms, split = device_ms(
+            lambda: rating.scatter_best_from_slots(*args, **kw), torch)
+        times[which].append(ms)
+        splits[which] = split
+    result = {"rows": dg.n_pad, "edges": dg.m, "num_slots": num_slots,
+              "rows_changed": changed, "max_abs_err": err,
+              "ms_without": times["without"], "ms_with": times["with"],
+              "split_without": splits["without"],
+              "split_with": splits["with"]}
+    print(json.dumps({"fused_k3_communities": result}), flush=True)
+    return result
+
+
 def check_k2_edge_cases(dg, gather, segments, rng, dev, torch) -> None:
     """K2 against its twin where its design has edges: hub rows of 45k
     edges cut over many blocks, a k beyond the shared-memory design, and a
@@ -542,17 +696,22 @@ def check_k2_edge_cases(dg, gather, segments, rng, dev, torch) -> None:
 
 
 def run_main(name, graph, kp, counted, dev, metrics, device_graph_from_host,
-             torch) -> None:
-    """Partition one graph through the public entry point and check the
-    result; prints its cut, imbalance, walls and launches."""
+             torch, preset, expected_cut):
+    """Partition one graph with `preset` through the public entry point
+    and check the result against `expected_cut`; prints its cut,
+    imbalance, walls and launches and returns the partition."""
     from kaminpar_tpu_torch import _native
 
+    from kaminpar_tpu_torch import native
+
     before = {fn.__name__: fn.launches for fn in counted}
-    solver = kp.KaMinPar("default", device="cuda").set_graph(graph)
+    fm_calls = native.fm_refine.calls
+    solver = kp.KaMinPar(preset, device="cuda").set_graph(graph)
     t0 = time.perf_counter()
     partition = solver.compute_partition(k=K_MAIN, epsilon=0.03, seed=1)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    fm_calls = native.fm_refine.calls - fm_calls
     if partition.shape != (graph.n,) or partition.min() < 0 or (
         partition.max() >= K_MAIN
     ):
@@ -578,20 +737,24 @@ def run_main(name, graph, kp, counted, dev, metrics, device_graph_from_host,
     if cut_dev != cut_host:
         fail(f"main path ({name}): device cut {cut_dev} != host cut "
              f"{cut_host}")
-    if cut_host != EXPECTED_CUTS[name]:
-        fail(f"main path ({name}): cut {cut_host}, every earlier run gave "
-             f"{EXPECTED_CUTS[name]}")
+    if cut_host != expected_cut:
+        fail(f"{preset} ({name}): cut {cut_host}, the pinned cut is "
+             f"{expected_cut}")
     perfect = -(-graph.total_node_weight // K_MAIN)
     print(json.dumps({
-        "main_path": name, "n": graph.n, "m": graph.m, "k": K_MAIN,
+        "main_path": name, "preset": preset, "pinned": expected_cut,
+        "n": graph.n, "m": graph.m, "k": K_MAIN,
         "ip_s": solver.last_timings.get("initial-partitioning"),
         "cut": cut_host, "imbalance": float(bw.max() / perfect - 1.0),
         "gate": solver.last_gate,
         "wall_s": wall, "phase_s": solver.last_timings,
+        "at_s": round(time.perf_counter() - T_START, 1),
+        "native_fm_calls": fm_calls,
         "levels": solver.last_levels,
         "launches": {fn.__name__: fn.launches - before[fn.__name__]
                      for fn in counted},
     }), flush=True)
+    return partition
 
 
 if __name__ == "__main__":

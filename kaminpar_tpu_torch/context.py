@@ -1,7 +1,9 @@
 """Configuration tree (analog of include/kaminpar-shm/kaminpar.h Context).
 
-Own copy of kaminpar_tpu/context.py (numpy only), trimmed to the knobs the
-default preset's deep multilevel path reads.
+Own copy of kaminpar_tpu/context.py (numpy only), without the subtrees of
+the JAX package's compressed and streamed inputs, dynamic sessions, debug
+dumps and checkpoints, which this package does not run, and without the
+knobs that neither package reads.
 
 The reference models every algorithmic choice as an enum + plain-struct tree
 (Context -> PartitioningContext/CoarseningContext/InitialPartitioningContext/
@@ -78,6 +80,12 @@ class IsolatedNodesStrategy(str, enum.Enum):
     MATCH_DURING_TWO_HOP = "cluster-during-two-hop"
 
 
+class InitialPartitioningMode(str, enum.Enum):
+    SEQUENTIAL = "sequential"
+    ASYNCHRONOUS_PARALLEL = "async-parallel"
+    SYNCHRONOUS_PARALLEL = "sync-parallel"
+
+
 class FMStoppingRule(str, enum.Enum):
     SIMPLE = "simple"
     ADAPTIVE = "adaptive"
@@ -112,6 +120,9 @@ class ClusteringContext:
         ClusterWeightLimit.EPSILON_BLOCK_WEIGHT
     )
     cluster_weight_multiplier: float = 1.0
+    # desired-cluster-count floor (n / shrink_factor); accepted for preset
+    # parity, not enforced by the bulk-sync clusterer (as in the JAX package)
+    shrink_factor: float = float("inf")
 
 
 @dataclass
@@ -127,6 +138,9 @@ class CoarseningContext:
     # accepted level costs a full refine pass during uncoarsening; the
     # host IP pool handles a 10-16k-node coarsest graph directly)
     stall_threshold: float = 0.12
+    # linear-time MGP (arXiv 2504.17615): fraction of edges kept per level
+    # before clustering, under SPARSIFICATION_CLUSTERING
+    sparsification_keep_ratio: float = 0.5
 
     def max_cluster_weight(
         self, n: int, total_node_weight: int, p_ctx: "PartitionContext"
@@ -223,6 +237,18 @@ class BalancerContext:
 
 
 @dataclass
+class FMRefinementContext:
+    """Host-side k-way FM (refinement/fm) knobs."""
+
+    num_iterations: int = 3
+    num_seed_nodes: int = 10
+    alpha: float = 1.0
+    num_fruitless_moves: int = 100
+    # run FM only on levels <= max_level (0 = finest)
+    max_level: int = 1
+
+
+@dataclass
 class RefinementContext:
     algorithms: List[RefinementAlgorithm] = field(
         default_factory=lambda: [
@@ -234,6 +260,7 @@ class RefinementContext:
     lp: LPRefinementContext = field(default_factory=LPRefinementContext)
     jet: JetRefinementContext = field(default_factory=JetRefinementContext)
     balancer: BalancerContext = field(default_factory=BalancerContext)
+    fm: FMRefinementContext = field(default_factory=FMRefinementContext)
 
 
 @dataclass
@@ -241,6 +268,9 @@ class PartitioningSchemeContext:
     """kaminpar.h PartitioningContext."""
 
     mode: PartitioningMode = PartitioningMode.DEEP
+    deep_initial_partitioning_mode: InitialPartitioningMode = (
+        InitialPartitioningMode.ASYNCHRONOUS_PARALLEL
+    )
     refine_after_extending_partition: bool = False
     # single-round Jet for intermediate k-doubling extensions (another
     # doubling follows immediately): ~13% faster end-to-end for ~0.1%
@@ -251,6 +281,16 @@ class PartitioningSchemeContext:
     # of the sequential host pool — the TPU answer to the reference running
     # many host bipartitions in parallel TBB tasks (helper.cc:220)
     device_bipartition_threshold: int = 1 << 14
+    vcycles: List[int] = field(default_factory=list)
+    restrict_vcycle_refinement: bool = False
+    rb_enable_kway_toplevel_refinement: bool = False
+
+
+@dataclass
+class ParallelContext:
+    # host worker threads for the per-block bipartitions of a host
+    # extension and for the native FM
+    num_workers: int = 1
 
 
 @dataclass
@@ -343,6 +383,28 @@ class ResilienceContext:
     repair: bool = True
 
 
+def context_to_dict(obj):
+    """Context tree (any dataclass tree) -> plain nested dict: enums to
+    values, numpy arrays to lists, inf to "inf" (the JAX package's
+    context_to_dict)."""
+    import dataclasses as _dc
+
+    if _dc.is_dataclass(obj) and not isinstance(obj, type):
+        return {
+            f.name: context_to_dict(getattr(obj, f.name))
+            for f in _dc.fields(obj)
+        }
+    if isinstance(obj, enum.Enum):
+        return obj.value
+    if isinstance(obj, np.ndarray):
+        return obj.tolist()
+    if isinstance(obj, (list, tuple)):
+        return [context_to_dict(x) for x in obj]
+    if isinstance(obj, float) and obj == float("inf"):
+        return "inf"
+    return obj
+
+
 @dataclass
 class Context:
     """Root context (include/kaminpar-shm/kaminpar.h:550-562)."""
@@ -357,6 +419,7 @@ class Context:
         default_factory=InitialPartitioningContext
     )
     refinement: RefinementContext = field(default_factory=RefinementContext)
+    parallel: ParallelContext = field(default_factory=ParallelContext)
     resilience: ResilienceContext = field(default_factory=ResilienceContext)
     seed: int = 0
 

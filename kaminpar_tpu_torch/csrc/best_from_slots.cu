@@ -34,6 +34,12 @@
 // takes only the edges that lost pass 1, and a row whose edge also lost
 // pass 2 is not fully rated.  The tables never leave shared memory: the
 // row's four outputs (best, best_w, w_own, fully_rated) are all it writes.
+// With communities (a nullable int32[n], the v-cycle's community
+// restriction), a label l is feasible for row u only where
+// communities[clamp(l, 0, n - 1)] == communities[u]: one load of the row's
+// community, then one dependent load and a compare per candidate; w_own and
+// fully_rated do not depend on it.  A null pointer leaves the kernel as it
+// was: the test is a branch on a kernel parameter.
 // The tables are filled by shared-memory atomicMax / atomicAdd on int32,
 // native on Hopper and exact in any order, so the result is bitwise the
 // plain torch composition's.
@@ -96,6 +102,10 @@ struct RowArgmax {
   int C;
   uint32_t salt;
   int require_fit;
+  // communities: null, or the rows' communities (n entries) and the row's
+  const int32_t* __restrict__ comm = nullptr;
+  int n = 0;
+  int32_t own_comm = 0;
   int32_t w_own = 0, bw = KP_INT32_MIN, bh = -1, bl = -1;
 
   __device__ __forceinline__ RowArgmax(int32_t own_, int32_t nw_,
@@ -112,6 +122,9 @@ struct RowArgmax {
       const int32_t c = lab >= C ? C - 1 : lab;
       const int32_t sum = (int32_t)((uint32_t)__ldg(cw + c) + (uint32_t)nw);
       feas = sum <= __ldg(cap + c);
+    }
+    if (feas && comm != nullptr) {
+      feas = __ldg(comm + (lab >= n ? n - 1 : lab)) == own_comm;
     }
     if (feas) {
       const int32_t h = kp_hash_u32(lab, salt);
@@ -231,6 +244,7 @@ struct Fused {
   const int32_t* __restrict__ cw;
   const int32_t* __restrict__ node_w;
   const int32_t* __restrict__ cap;
+  const int32_t* __restrict__ comm;  // null: no community restriction
   int32_t* out_best;
   int32_t* out_w;
   int32_t* out_own;
@@ -300,8 +314,14 @@ __device__ __forceinline__ void write_row(const Fused& p, int row,
 }
 
 __device__ __forceinline__ RowArgmax row_argmax(const Fused& p, int row) {
-  return RowArgmax(__ldg(p.labels + row), __ldg(p.node_w + row), p.cw, p.cap,
-                   p.C, p.salt1, p.require_fit);
+  RowArgmax acc(__ldg(p.labels + row), __ldg(p.node_w + row), p.cw, p.cap,
+                p.C, p.salt1, p.require_fit);
+  if (p.comm != nullptr) {
+    acc.comm = p.comm;
+    acc.n = p.n;
+    acc.own_comm = __ldg(p.comm + row);
+  }
+  return acc;
 }
 
 // Shared memory: per warp, key[2 S1] then w[2 S1].
@@ -482,14 +502,15 @@ fused_heavy_kernel(Fused p) {
 
 // n rows (the labels' length, below 2^31), D buffer slots (dst and w);
 // heavy: int32[n + 1] scratch.  out_full is one byte per row (0 / 1).
+// communities: null, or int32[n].
 // Returns cudaErrorInvalidValue for a num_slots outside [1, 256] or a
 // label_bits outside [1, 27].
 extern "C" int kp_scatter_best_from_slots(
     const void* start, const void* end, const void* dst, const void* w,
     const void* labels, const void* cw, const void* node_w, const void* cap,
-    void* out_best, void* out_w, void* out_own, void* out_full, void* heavy,
-    int n, int D, int C, int num_slots, int label_bits, unsigned int salt,
-    int require_fit, void* stream) {
+    const void* communities, void* out_best, void* out_w, void* out_own,
+    void* out_full, void* heavy, int n, int D, int C, int num_slots,
+    int label_bits, unsigned int salt, int require_fit, void* stream) {
   if (num_slots < 1 || num_slots > kMaxFusedSlots || label_bits < 1 ||
       label_bits > 27) {
     return (int)cudaErrorInvalidValue;
@@ -505,6 +526,7 @@ extern "C" int kp_scatter_best_from_slots(
   p.cw = (const int32_t*)cw;
   p.node_w = (const int32_t*)node_w;
   p.cap = (const int32_t*)cap;
+  p.comm = (const int32_t*)communities;
   p.out_best = (int32_t*)out_best;
   p.out_w = (int32_t*)out_w;
   p.out_own = (int32_t*)out_own;

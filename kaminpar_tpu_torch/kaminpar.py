@@ -6,7 +6,9 @@ ends with the output gate's check-and-repair.
     part = KaMinPar("default", device="cuda").set_graph(g).compute_partition(
         k=16, epsilon=0.03, seed=1)
 
-The JAX package's compressed and streamed inputs, deadlines, checkpoints,
+Schemes: deep multilevel, k-way, recursive bipartitioning and v-cycles on
+one device.  The JAX package's compressed and streamed inputs (the
+`terapart*` presets and the `external` scheme), deadlines, checkpoints,
 memory ladder and telemetry are not part of this package.
 """
 
@@ -109,14 +111,26 @@ class KaMinPar:
         return partition
 
     def _partition_core(self, graph: HostGraph) -> np.ndarray:
+        """Scheme dispatch (factories.cc:40-57 create_partitioner)."""
         mode = self.ctx.partitioning.mode
-        if mode != PartitioningMode.DEEP:
+        if mode == PartitioningMode.EXTERNAL:
             raise NotImplementedError(
-                f"partitioning scheme {mode.value!r} is not ported yet"
+                "partitioning scheme 'external' is not ported yet: it comes "
+                "with the compressed and streamed inputs slice"
             )
-        from .partitioning.deep import DeepMultilevelPartitioner
-
-        partitioner = DeepMultilevelPartitioner(self.ctx, self.device)
+        if mode == PartitioningMode.DEEP:
+            from .partitioning.deep import DeepMultilevelPartitioner as cls
+        elif mode == PartitioningMode.KWAY:
+            from .partitioning.kway import KWayMultilevelPartitioner as cls
+        elif mode == PartitioningMode.RB:
+            from .partitioning.rb_scheme import RBMultilevelPartitioner as cls
+        elif mode == PartitioningMode.VCYCLE:
+            from .partitioning.vcycle import (
+                VcycleDeepMultilevelPartitioner as cls,
+            )
+        else:
+            raise ValueError(f"unknown partitioning mode: {mode}")
+        partitioner = cls(self.ctx, self.device)
         part = partitioner.partition(graph)
         self.last_timings = dict(partitioner.timings)
         self.last_levels = list(partitioner.levels)

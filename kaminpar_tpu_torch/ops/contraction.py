@@ -19,7 +19,7 @@ from ..caching import pad_size
 from ..dtypes import ACC_DTYPE
 from ..graphs.csr import DeviceGraph, shape_floors
 from .gather import gather_i32
-from .segments import aggregate_by_key, segment_sum
+from .segments import aggregate_by_key, segment_min, segment_sum
 
 
 @dataclass
@@ -32,6 +32,17 @@ class CoarseGraph:
     def project_up(self, coarse_partition: torch.Tensor) -> torch.Tensor:
         """Coarse partition -> fine partition."""
         return gather_i32(coarse_partition, self.cmap)
+
+    def project_down(self, fine_partition: torch.Tensor) -> torch.Tensor:
+        """Fine partition -> coarse partition: each coarse node takes the
+        block of its lowest fine node (consistent only where the fine
+        partition is constant on every cluster)."""
+        n_fine = self.cmap.shape[0]
+        first_fine = segment_min(
+            torch.arange(n_fine, dtype=torch.int32, device=self.cmap.device),
+            self.cmap, self.graph.n_pad,
+        )
+        return fine_partition[first_fine.clamp(0, n_fine - 1).to(torch.int64)]
 
 
 def _fit(x: torch.Tensor, size: int, fill) -> torch.Tensor:

@@ -7,7 +7,8 @@ that table (the port of the TPU kernel `best_from_slots_pallas`, with the
 feasibility mask of the masked `best_from_slots` folded in).
 `scatter_best_from_slots` is the fused K3 the scatter engine runs: one
 kernel builds each row's slot table in shared memory from the row's span
-and rates it, so the table never reaches device memory.
+and rates it, so the table never reaches device memory; it takes the
+v-cycle's `communities=` restriction on the card as well.
 """
 
 from __future__ import annotations
@@ -337,18 +338,14 @@ def scatter_best_from_slots(
     (best i32, best_w i32, w_own i32, fully_rated bool), each [n_pad],
     n_pad = len(labels).  Exactly scatter_slot_ratings(...) followed by
     best_from_slots(..., tie salt = `salt`); the neighbour labels
-    labels[dst_b] are gathered by the kernel.  `communities` is not on
-    the default path: only the twin (CPU) supports it."""
+    labels[dst_b] are gathered by the kernel.  `communities` (i32[n_pad],
+    the v-cycle's restriction) bars every label l from row u whose
+    communities[clamp(l, 0, n_pad - 1)] differs from communities[u]."""
     if dst_b.device.type == "cpu":
         return scatter_best_from_slots_twin(
             start, end, dst_b, w_b, labels, cluster_weights, node_w, cap,
             num_slots, salt, require_fit=require_fit,
             communities=communities,
-        )
-    if communities is not None:
-        raise NotImplementedError(
-            "scatter_best_from_slots kernel: communities is not supported "
-            "on CUDA"
         )
     if not 1 <= num_slots <= MAX_FUSED_SLOTS:
         raise ValueError(f"scatter_best_from_slots kernel: num_slots="
@@ -366,6 +363,13 @@ def scatter_best_from_slots(
                     node_w, cap)
     if not (start.shape == end.shape == node_w.shape == (n_pad,)):
         raise ValueError("start, end and node_w must have n_pad entries")
+    comm_ptr = None
+    if communities is not None:
+        communities = communities.contiguous()
+        _require_i32_on(dev, communities)
+        if communities.shape != (n_pad,):
+            raise ValueError("communities must have n_pad entries")
+        comm_ptr = communities.data_ptr()
     if dst_b.shape != w_b.shape or dst_b.dim() != 1:
         raise ValueError("dst_b and w_b must be one 1-D shape")
     slots = dst_b.numel()
@@ -380,13 +384,13 @@ def scatter_best_from_slots(
     vp, c_int = ctypes.c_void_p, ctypes.c_int
     fn = _native.bind(
         "best_from_slots.cu", "kp_scatter_best_from_slots",
-        (vp,) * 13 + (c_int,) * 5 + (ctypes.c_uint, c_int, vp),
+        (vp,) * 14 + (c_int,) * 5 + (ctypes.c_uint, c_int, vp),
     )
     with _native.timed("scatter_best_from_slots"):
         code = fn(
             start.data_ptr(), end.data_ptr(), dst_b.data_ptr(),
             w_b.data_ptr(), labels.data_ptr(), cluster_weights.data_ptr(),
-            node_w.data_ptr(), cap.data_ptr(), best.data_ptr(),
+            node_w.data_ptr(), cap.data_ptr(), comm_ptr, best.data_ptr(),
             best_w.data_ptr(), w_own.data_ptr(), fully_rated.data_ptr(),
             heavy.data_ptr(), n_pad, slots, C, num_slots, label_bits,
             int(salt) & 0xFFFFFFFF, int(bool(require_fit)), _stream(),

@@ -2,8 +2,10 @@
 kaminpar_tpu/partitioning/coarsener.py): LP clustering then contraction,
 level by level, with the reference's max-cluster-weight formula, the
 forced-shrink retries, the hash-engine last resort and the limping-tail
-cutoff.  The JAX package's spill, checkpoint, integrity, telemetry,
-sparsification and overlay hooks are not part of this package.
+cutoff.  Under SPARSIFICATION_CLUSTERING (linear-time MGP) a level of more
+than 2^16 edges is clustered on a sparsified copy (ops/sparsify.py) and
+the true graph is contracted.  The JAX package's spill, checkpoint,
+integrity, telemetry and overlay hooks are not part of this package.
 """
 
 from __future__ import annotations
@@ -24,6 +26,15 @@ from ..graphs.csr import DeviceGraph
 from ..ops.contraction import CoarseGraph, contract_clustering
 from ..ops.lp import LPConfig, lp_cluster
 from ..ops.rating import select_engine
+from ..ops.sparsify import sparsify_edges
+
+# the coarsening algorithms this package runs
+_ALGORITHMS = (
+    CoarseningAlgorithm.BASIC_CLUSTERING,
+    CoarseningAlgorithm.SPARSIFICATION_CLUSTERING,
+)
+# sparsification clusters levels with more edges than this
+SPARSIFY_MIN_EDGES = 1 << 16
 
 
 @dataclass
@@ -41,7 +52,7 @@ class Coarsener:
     """Cluster coarsener with hierarchy (coarsener.h:20-88 interface)."""
 
     def __init__(self, ctx: Context, graph: DeviceGraph, n: int):
-        if ctx.coarsening.algorithm != CoarseningAlgorithm.BASIC_CLUSTERING:
+        if ctx.coarsening.algorithm not in _ALGORITHMS:
             raise NotImplementedError(
                 f"coarsening algorithm {ctx.coarsening.algorithm.value!r} "
                 "is not ported yet"
@@ -106,9 +117,19 @@ class Coarsener:
         )
         seed = (self.ctx.seed * 7919 + self.level * 31337) & 0x7FFFFFFF
         mcw = min(max_cluster_weight, WMAX)
-        lp_cfg = self._level_lp_cfg(self.current)
+        cluster_input = self.current
+        if (
+            c_ctx.algorithm == CoarseningAlgorithm.SPARSIFICATION_CLUSTERING
+            and self.current.m > SPARSIFY_MIN_EDGES
+        ):
+            # cluster a sparsified copy, contract the true graph: the
+            # hierarchy holds unmutated graphs
+            cluster_input = sparsify_edges(
+                self.current, c_ctx.sparsification_keep_ratio, seed ^ 0x51A5
+            )
+        lp_cfg = self._level_lp_cfg(cluster_input)
 
-        labels = lp_cluster(self.current, mcw, seed, lp_cfg)
+        labels = lp_cluster(cluster_input, mcw, seed, lp_cfg)
         coarse, c_n, c_m = contract_clustering(self.current, labels)
 
         # forced-shrink retries: relax the cap and re-cluster while the
@@ -121,7 +142,8 @@ class Coarsener:
         ):
             retries += 1
             mcw = min(mcw * 2, WMAX)
-            labels = lp_cluster(self.current, mcw, seed + retries * 977, lp_cfg)
+            labels = lp_cluster(cluster_input, mcw, seed + retries * 977,
+                                lp_cfg)
             coarse, c_n, c_m = contract_clustering(self.current, labels)
 
         if (
@@ -131,7 +153,7 @@ class Coarsener:
             # last resort: the hashed-slot engine sees more candidate
             # clusters per node than sort2's top-K
             hash_cfg = replace(self._lp_cfg, rating="hash")
-            labels = lp_cluster(self.current, mcw, seed + 3989, hash_cfg)
+            labels = lp_cluster(cluster_input, mcw, seed + 3989, hash_cfg)
             coarse, c_n, c_m = contract_clustering(self.current, labels)
 
         if c_n >= (1.0 - c_ctx.convergence_threshold) * self.current_n:

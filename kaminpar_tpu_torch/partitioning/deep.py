@@ -16,10 +16,9 @@ level of the hierarchy, input first, in `levels`.
 
 from __future__ import annotations
 
-import time
-from contextlib import contextmanager
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
-from typing import Dict, List, Tuple
+from typing import List, Tuple
 
 import numpy as np
 import torch
@@ -45,6 +44,7 @@ from ..ops.subgraphs import (
     slice_block,
 )
 from ..utils.rng import host_rng
+from .base import MultilevelScheme
 from .coarsener import Coarsener
 from .rb import bipartition_max_block_weights, split_k
 from .refiner import RefinerPipeline
@@ -71,30 +71,10 @@ def compute_k_for_n(n: int, ctx: Context) -> int:
     return int(np.clip(k_prime, 2, ctx.partition.k))
 
 
-class DeepMultilevelPartitioner:
+class DeepMultilevelPartitioner(MultilevelScheme):
     def __init__(self, ctx: Context, device: torch.device):
-        self.ctx = ctx
-        self.device = device
+        super().__init__(ctx, device)
         self._spans: List[_BlockSpan] = []
-        self.timings: Dict[str, float] = {}
-        self.levels: List[Tuple[int, int]] = []
-
-    @contextmanager
-    def _phase(self, name: str):
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            if self.device.type == "cuda":
-                torch.cuda.synchronize(self.device)
-            self.timings[name] = (
-                self.timings.get(name, 0.0) + time.perf_counter() - t0
-            )
-
-    def _pad_partition(self, part: np.ndarray, n_pad: int) -> torch.Tensor:
-        padded = np.zeros(n_pad, dtype=np.int32)
-        padded[: len(part)] = part
-        return torch.from_numpy(padded).to(self.device)
 
     def partition(self, graph: HostGraph) -> np.ndarray:
         ctx = self.ctx
@@ -208,18 +188,14 @@ class DeepMultilevelPartitioner:
              for s in spans],
             dtype=np.int64,
         )
-        max_bw = torch.as_tensor(np.minimum(caps, WMAX).astype(np.int32),
-                                 device=self.device)
-        min_bw = None
+        mins = None
         if p.min_block_weights is not None:
             mins = np.array(
                 [int(p.min_block_weights[s.first: s.first + s.count].sum())
                  for s in spans],
                 dtype=np.int64,
             )
-            min_bw = torch.as_tensor(np.minimum(mins, WMAX).astype(np.int32),
-                                     device=self.device)
-        return max_bw, min_bw
+        return self._weights(caps), self._weights(mins)
 
     def _device_bipartition(
         self, sub: HostGraph, max_block_weights: np.ndarray, rng
@@ -349,7 +325,10 @@ class DeepMultilevelPartitioner:
 
     def _extend_partition_host(self, dgraph, partition, spans, next_k, rng):
         """Host extraction: read the level back, extract every block's
-        subgraph with numpy and bipartition the blocks that split."""
+        subgraph with numpy and bipartition the blocks that split.  With
+        ctx.parallel.num_workers > 1 the host bipartitions run on a pool of
+        that many threads, each with a seed drawn beforehand; with one
+        worker they draw from the shared stream."""
         ctx = self.ctx
         host = host_graph_from_device(dgraph)
         part = partition[: host.n].cpu().numpy().astype(np.int64)
@@ -361,6 +340,8 @@ class DeepMultilevelPartitioner:
             ctx.initial_partitioning
         )
         sub_parts: List = []
+        pool_jobs: List[Tuple[int, HostGraph, np.ndarray, int]] = []
+        workers = max(1, int(ctx.parallel.num_workers))
         next_id = 0
         for b, span in enumerate(spans):
             if span.count > 1:
@@ -370,6 +351,13 @@ class DeepMultilevelPartitioner:
                 )
                 if sub.n >= ctx.partitioning.device_bipartition_threshold:
                     bp = self._device_bipartition(sub, max_w, rng)
+                elif workers > 1:
+                    # the seed of each pool job is drawn here, in block
+                    # order, so that the result is the same for any number
+                    # of workers
+                    pool_jobs.append((len(sub_parts), sub, max_w,
+                                      int(rng.integers(0, 2**31 - 1))))
+                    bp = None
                 else:
                     bp = bipartitioner.bipartition(sub, max_w, rng)
                 k0, k1 = split_k(span.count)
@@ -383,6 +371,25 @@ class DeepMultilevelPartitioner:
                 new_spans.append(span)
                 sub_parts.append(None)
                 next_id += 1
+
+        def run_job(job):
+            # a bipartitioner of its own: the pool's adaptive statistics
+            # are not shared between threads
+            idx, sub, max_w, job_seed = job
+            return idx, InitialMultilevelBipartitioner(
+                ctx.initial_partitioning
+            ).bipartition(sub, max_w, np.random.default_rng(job_seed))
+
+        if len(pool_jobs) > 1:
+            # the native bipartitioner releases the interpreter lock for
+            # its C call, so the threads run side by side
+            with ThreadPoolExecutor(max_workers=workers) as pool:
+                for idx, bp in pool.map(run_job, pool_jobs):
+                    sub_parts[idx] = bp
+        else:
+            for job in pool_jobs:
+                idx, bp = run_job(job)
+                sub_parts[idx] = bp
 
         new_part = np.zeros(host.n, dtype=np.int32)
         for b, span in enumerate(spans):

@@ -1,7 +1,7 @@
 """Refinement pipeline (counterpart of kaminpar_tpu/partitioning/refiner.py):
 runs the context's refiner list in order — overload balancer, underload
-balancer, Jet and LP refinement — plus the exact host balance backstop.
-Any other algorithm raises NotImplementedError.
+balancer, Jet and LP refinement on the device, k-way FM and the gated
+Mt-KaHyPar adapter on the host — plus the exact host balance backstop.
 """
 
 from __future__ import annotations
@@ -20,6 +20,8 @@ from ..ops import metrics
 from ..ops.jet import jet_refine
 from ..ops.lp import LPConfig, lp_refine
 from ..ops.segments import pad_k_bucket
+from ..refinement.fm import fm_refine_host
+from ..refinement.mtkahypar import mtkahypar_refine_host
 
 
 class RefinerPipeline:
@@ -86,10 +88,33 @@ class RefinerPipeline:
                     graph, partition, k, max_block_weights, salt, jet_ctx,
                     level=level, num_levels=num_levels,
                 )
+            elif algorithm == RefinementAlgorithm.GREEDY_FM:
+                # FM earns its host round trip on the finest levels only;
+                # light intermediate extensions skip it, as they skip
+                # full Jet
+                if self.light or level > self.ctx.refinement.fm.max_level:
+                    continue
+                # host refiners see the real k, not the padded bucket
+                partition = fm_refine_host(
+                    graph, partition, self.k,
+                    max_block_weights[: self.k], self.ctx.refinement.fm,
+                    seed=seed + i, threads=self.ctx.parallel.num_workers,
+                )
+            elif algorithm == RefinementAlgorithm.MTKAHYPAR:
+                host = host_graph_from_device(graph)
+                refined = mtkahypar_refine_host(
+                    host, partition[: host.n].cpu().numpy(), self.k,
+                    max_block_weights=max_block_weights[: self.k].cpu()
+                    .numpy(),
+                    epsilon=self.ctx.partition.epsilon, seed=seed + i,
+                    threads=self.ctx.parallel.num_workers,
+                )
+                full = torch.zeros(graph.n_pad, dtype=torch.int32)
+                full[: host.n] = torch.from_numpy(refined)
+                partition = full.to(graph.device)
             else:
-                raise NotImplementedError(
-                    f"refinement algorithm {algorithm.value!r} is not "
-                    "ported yet"
+                raise ValueError(
+                    f"unknown refinement algorithm: {algorithm!r}"
                 )
         return partition
 

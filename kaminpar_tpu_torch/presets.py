@@ -1,22 +1,33 @@
-"""Named presets (counterpart of kaminpar_tpu/presets.py).
+"""Named presets (counterpart of kaminpar_tpu/presets.py; presets.cc:18-100).
 
-This package runs the `default` preset: deep multilevel with LP
-coarsening, then the overload/underload balancers, Jet and LP refinement.
-Every other preset name of the JAX package is known and raises
-NotImplementedError naming the later slice of the port that brings it.
+Each preset builds a filled-in Context, field for field the JAX package's.
+The `terapart*` presets run on compressed inputs, which this package does
+not read yet: they raise NotImplementedError naming that later slice.
 """
 
 from __future__ import annotations
 
 from typing import Set
 
-from .context import Context, RefinementAlgorithm
+from .context import (
+    ClusterWeightLimit,
+    CoarseningAlgorithm,
+    Context,
+    PartitioningMode,
+    RefinementAlgorithm,
+    TwoHopStrategy,
+)
 
 
 def create_default_context() -> Context:
-    """The JAX package's default preset (presets.cc:102-301 with Jet as
-    the default refiner and refinement after every extension)."""
+    """presets.cc:102-301 (deep multilevel, LP coarsening) with the JAX
+    package's two deviations from the reference's default: Jet then an
+    afterburned LP pass as the refiners (the bulk-synchronous rounds need
+    Jet's filtered move selection), and refinement after every
+    k-doubling extension."""
     ctx = Context(preset_name="default")
+    # Jet then an afterburned-LP polish pass; two Jet rounds on the
+    # finest level
     ctx.refinement.algorithms = [
         RefinementAlgorithm.OVERLOAD_BALANCER,
         RefinementAlgorithm.UNDERLOAD_BALANCER,
@@ -28,50 +39,239 @@ def create_default_context() -> Context:
     return ctx
 
 
-# preset -> the later slice of the port that brings it
-_LATER = {
-    "fast": "the fast/strong/largek presets slice",
-    "strong": "the fast/strong/largek presets slice (it needs native FM)",
-    "fm": "the fast/strong/largek presets slice (it needs native FM)",
-    "largek": "the fast/strong/largek presets slice",
-    "largek-fast": "the fast/strong/largek presets slice",
-    "largek-strong": "the fast/strong/largek presets slice",
-    "terapart": "the compressed and streamed inputs slice",
-    "terapart-strong": "the compressed and streamed inputs slice",
-    "terapart-largek": "the compressed and streamed inputs slice",
-    "jet": "the fast/strong/largek presets slice",
-    "4xjet": "the fast/strong/largek presets slice",
-    "noref": "the fast/strong/largek presets slice",
-    "vcycle": "the kway/rb/vcycle schemes slice",
-    "restricted-vcycle": "the kway/rb/vcycle schemes slice",
-    "esa21": "the fast/strong/largek presets slice",
-    "esa21-smallk": "the fast/strong/largek presets slice",
-    "esa21-largek": "the fast/strong/largek presets slice",
-    "esa21-largek-fast": "the fast/strong/largek presets slice",
-    "esa21-strong": "the fast/strong/largek presets slice",
-    "diss": "the fast/strong/largek presets slice",
-    "diss-smallk": "the fast/strong/largek presets slice",
-    "diss-largek": "the fast/strong/largek presets slice",
-    "diss-largek-fast": "the fast/strong/largek presets slice",
-    "diss-strong": "the fast/strong/largek presets slice",
-    "mtkahypar-kway": "the kway/rb/vcycle schemes slice",
-    "linear-time-kway": "the kway/rb/vcycle schemes slice",
+def create_fast_context() -> Context:
+    """presets.cc:301-309: single LP iteration, single IP repetition."""
+    ctx = create_default_context()
+    ctx.preset_name = "fast"
+    ctx.coarsening.clustering.lp.num_iterations = 1
+    ctx.initial_partitioning.pool.min_num_repetitions = 1
+    ctx.initial_partitioning.pool.min_num_non_adaptive_repetitions = 1
+    ctx.initial_partitioning.pool.max_num_repetitions = 1
+    ctx.partitioning.light_intermediate_refinement = True
+    return ctx
+
+
+def create_strong_context() -> Context:
+    """presets.cc:311-324: adds k-way FM between refinement and final
+    balancing (Jet plays the reference's LP slot, see default).  The
+    localized batch FM (native/fm.cpp) runs on the finest levels,
+    alternated with Jet: FM escapes Jet's bulk-move local optimum, and
+    Jet re-polishes the FM result."""
+    ctx = create_default_context()
+    ctx.preset_name = "strong"
+    ctx.refinement.algorithms = [
+        RefinementAlgorithm.OVERLOAD_BALANCER,
+        RefinementAlgorithm.UNDERLOAD_BALANCER,
+        RefinementAlgorithm.JET,
+        RefinementAlgorithm.GREEDY_FM,
+        RefinementAlgorithm.JET,
+        RefinementAlgorithm.GREEDY_FM,
+        RefinementAlgorithm.OVERLOAD_BALANCER,
+        RefinementAlgorithm.UNDERLOAD_BALANCER,
+    ]
+    # intermediate extensions get single-round Jet and skip FM; the
+    # final extension's refine at each level is the real polish
+    ctx.partitioning.light_intermediate_refinement = True
+    return ctx
+
+
+def create_largek_context() -> Context:
+    """presets.cc:326-334: fewer IP repetitions for huge k.  Refinement
+    avoids every dense (n, k) structure — Jet's connection table cannot
+    exist at the reference's k=30,000 claim (README.MD:17); LP refinement
+    rates through the sort engine and the balancers switch to edge
+    aggregation above ops/balancer.BALANCER_DENSE_MAX_K."""
+    ctx = create_default_context()
+    ctx.preset_name = "largek"
+    ctx.initial_partitioning.pool.min_num_repetitions = 4
+    ctx.initial_partitioning.pool.min_num_non_adaptive_repetitions = 2
+    ctx.initial_partitioning.pool.max_num_repetitions = 4
+    ctx.refinement.algorithms = [
+        RefinementAlgorithm.OVERLOAD_BALANCER,
+        RefinementAlgorithm.UNDERLOAD_BALANCER,
+        RefinementAlgorithm.LABEL_PROPAGATION,
+    ]
+    return ctx
+
+
+def create_largek_fast_context() -> Context:
+    ctx = create_largek_context()
+    ctx.preset_name = "largek-fast"
+    pool = ctx.initial_partitioning.pool
+    pool.min_num_repetitions = 2
+    pool.min_num_non_adaptive_repetitions = 1
+    pool.max_num_repetitions = 2
+    pool.enable_ggg_bipartitioner = False
+    pool.refinement.disabled = True
+    pool.refinement.num_iterations = 1
+    return ctx
+
+
+def create_largek_strong_context() -> Context:
+    ctx = create_largek_context()
+    ctx.preset_name = "largek-strong"
+    ctx.refinement.algorithms = [
+        RefinementAlgorithm.OVERLOAD_BALANCER,
+        RefinementAlgorithm.UNDERLOAD_BALANCER,
+        RefinementAlgorithm.LABEL_PROPAGATION,
+        RefinementAlgorithm.GREEDY_FM,
+        RefinementAlgorithm.OVERLOAD_BALANCER,
+        RefinementAlgorithm.UNDERLOAD_BALANCER,
+    ]
+    return ctx
+
+
+def create_jet_context(rounds: int = 1) -> Context:
+    """presets.cc:372-391: Jet instead of LP refinement."""
+    ctx = create_default_context()
+    ctx.preset_name = "jet" if rounds == 1 else f"{rounds}xjet"
+    ctx.refinement.algorithms = [
+        RefinementAlgorithm.OVERLOAD_BALANCER,
+        RefinementAlgorithm.UNDERLOAD_BALANCER,
+        RefinementAlgorithm.JET,
+    ]
+    if rounds > 1:
+        jet = ctx.refinement.jet
+        jet.num_rounds_on_coarse_level = rounds
+        jet.num_rounds_on_fine_level = rounds
+        jet.initial_gain_temp_on_coarse_level = 0.75
+        jet.initial_gain_temp_on_fine_level = 0.75
+        jet.final_gain_temp_on_coarse_level = 0.25
+        jet.final_gain_temp_on_fine_level = 0.25
+    return ctx
+
+
+def create_noref_context() -> Context:
+    ctx = create_default_context()
+    ctx.preset_name = "noref"
+    ctx.refinement.algorithms = []
+    return ctx
+
+
+def create_vcycle_context(restrict_refinement: bool = False) -> Context:
+    """presets.cc:422-436."""
+    ctx = create_default_context()
+    ctx.preset_name = "restricted-vcycle" if restrict_refinement else "vcycle"
+    ctx.partitioning.mode = PartitioningMode.VCYCLE
+    if restrict_refinement:
+        ctx.partitioning.restrict_vcycle_refinement = True
+        ctx.refinement.algorithms = [RefinementAlgorithm.LABEL_PROPAGATION]
+    return ctx
+
+
+def create_esa21_smallk_context() -> Context:
+    """presets.cc create_esa21_smallk_context: the ESA'21 configuration.
+    The reference switches to BUFFERED contraction + single-phase LP; the
+    device pipeline has one contraction and one LP implementation, so this
+    is the default pipeline under the historical name."""
+    ctx = create_default_context()
+    ctx.preset_name = "esa21-smallk"
+    return ctx
+
+
+def create_esa21_largek_context() -> Context:
+    ctx = create_esa21_smallk_context()
+    ctx.preset_name = "esa21-largek"
+    ctx.initial_partitioning.pool.min_num_repetitions = 4
+    ctx.initial_partitioning.pool.min_num_non_adaptive_repetitions = 2
+    ctx.initial_partitioning.pool.max_num_repetitions = 4
+    return ctx
+
+
+def create_esa21_largek_fast_context() -> Context:
+    ctx = create_esa21_largek_context()
+    ctx.preset_name = "esa21-largek-fast"
+    pool = ctx.initial_partitioning.pool
+    pool.min_num_repetitions = 2
+    pool.min_num_non_adaptive_repetitions = 1
+    pool.max_num_repetitions = 2
+    return ctx
+
+
+def create_esa21_strong_context() -> Context:
+    ctx = create_esa21_smallk_context()
+    ctx.preset_name = "esa21-strong"
+    ctx.refinement.algorithms = [
+        RefinementAlgorithm.OVERLOAD_BALANCER,
+        RefinementAlgorithm.UNDERLOAD_BALANCER,
+        RefinementAlgorithm.LABEL_PROPAGATION,
+        RefinementAlgorithm.GREEDY_FM,
+        RefinementAlgorithm.OVERLOAD_BALANCER,
+        RefinementAlgorithm.UNDERLOAD_BALANCER,
+    ]
+    return ctx
+
+
+def create_linear_time_kway_context() -> Context:
+    """presets.cc create_linear_time_kway_context: mtkahypar-kway with
+    sparsification clustering (linear-time MGP, arXiv 2504.17615)."""
+    ctx = create_mtkahypar_kway_context()
+    ctx.preset_name = "linear-time-kway"
+    ctx.coarsening.algorithm = CoarseningAlgorithm.SPARSIFICATION_CLUSTERING
+    return ctx
+
+
+def create_mtkahypar_kway_context() -> Context:
+    """presets.cc:488-499: Mt-KaHyPar-style coarsening + direct k-way."""
+    ctx = create_default_context()
+    ctx.preset_name = "mtkahypar-kway"
+    cl = ctx.coarsening.clustering
+    cl.lp.num_iterations = 1
+    cl.cluster_weight_limit = ClusterWeightLimit.BLOCK_WEIGHT
+    cl.cluster_weight_multiplier = 1.0 / 160.0
+    cl.shrink_factor = 2.5
+    cl.lp.two_hop_strategy = TwoHopStrategy.CLUSTER
+    ctx.coarsening.contraction_limit = 160
+    ctx.partitioning.mode = PartitioningMode.KWAY
+    return ctx
+
+
+_PRESETS = {
+    "default": create_default_context,
+    "fast": create_fast_context,
+    "strong": create_strong_context,
+    "fm": create_strong_context,
+    "largek": create_largek_context,
+    "largek-fast": create_largek_fast_context,
+    "largek-strong": create_largek_strong_context,
+    "jet": create_jet_context,
+    "4xjet": lambda: create_jet_context(4),
+    "noref": create_noref_context,
+    "vcycle": lambda: create_vcycle_context(False),
+    "restricted-vcycle": lambda: create_vcycle_context(True),
+    "esa21": create_esa21_smallk_context,
+    "esa21-smallk": create_esa21_smallk_context,
+    "esa21-largek": create_esa21_largek_context,
+    "esa21-largek-fast": create_esa21_largek_fast_context,
+    "esa21-strong": create_esa21_strong_context,
+    "diss": create_esa21_smallk_context,
+    "diss-smallk": create_esa21_smallk_context,
+    "diss-largek": create_esa21_largek_context,
+    "diss-largek-fast": create_esa21_largek_fast_context,
+    "diss-strong": create_esa21_strong_context,
+    "mtkahypar-kway": create_mtkahypar_kway_context,
+    "linear-time-kway": create_linear_time_kway_context,
 }
+
+# presets of the compressed-graph (TeraPart) mode, not ported yet
+_COMPRESSED = ("terapart", "terapart-strong", "terapart-largek")
 
 
 def create_context_by_preset_name(name: str) -> Context:
     """presets.cc:18-73."""
-    if name == "default":
-        return create_default_context()
-    if name in _LATER:
+    if name in _COMPRESSED:
         raise NotImplementedError(
-            f"preset {name!r} is not ported yet: it comes with {_LATER[name]}"
+            f"preset {name!r} is not ported yet: it comes with the "
+            "compressed and streamed inputs slice"
         )
-    raise ValueError(
-        f"invalid preset name: {name!r} (available: {sorted(get_preset_names())})"
-    )
+    if name not in _PRESETS:
+        raise ValueError(
+            f"invalid preset name: {name!r} (available: "
+            f"{sorted(get_preset_names())})"
+        )
+    return _PRESETS[name]()
 
 
 def get_preset_names() -> Set[str]:
-    """Every preset name the JAX package knows."""
-    return {"default", *_LATER}
+    """Every preset name the JAX package knows (presets.cc:76-99)."""
+    return {*_PRESETS, *_COMPRESSED}

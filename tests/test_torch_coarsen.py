@@ -35,6 +35,7 @@ from kaminpar_tpu_torch.partitioning import deep as tdeep
 from kaminpar_tpu_torch.partitioning import rb as trb
 from kaminpar_tpu_torch.presets import create_context_by_preset_name as tctx_of
 from kaminpar_tpu_torch.utils import rng as trng
+from torch_threads import one_torch_thread  # noqa: F401
 
 GRAPH_FIELDS = ("row_ptr", "src", "dst", "edge_w", "node_w")
 

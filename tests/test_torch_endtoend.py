@@ -21,6 +21,7 @@ import kaminpar_tpu as kt
 import kaminpar_tpu_torch as kp
 from kaminpar_tpu.graphs import factories as jfactories
 from kaminpar_tpu_torch import native
+from torch_threads import one_torch_thread  # noqa: F401
 
 CASES = {
     "rmat-k8": (lambda: jfactories.make_rmat(1 << 12, 30_000, seed=3), 8),

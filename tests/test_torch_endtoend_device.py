@@ -15,6 +15,7 @@ import kaminpar_tpu_torch.ops.jet as tjet
 import kaminpar_tpu_torch.ops.lp as tlp
 import kaminpar_tpu_torch.partitioning.deep as tdeep
 from test_torch_endtoend import CASES, run_both
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 @pytest.fixture

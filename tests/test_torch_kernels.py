@@ -26,6 +26,7 @@ from kaminpar_tpu_torch.convert import (
 )
 from kaminpar_tpu_torch.ops import gather, rating
 from kaminpar_tpu_torch.ops import segments as T
+from torch_threads import one_torch_thread  # noqa: F401
 
 I32_MIN = np.iinfo(np.int32).min
 

@@ -19,6 +19,7 @@ from kaminpar_tpu.graphs import factories as jfactories
 from kaminpar_tpu.graphs.csr import device_graph_from_host as jax_upload
 from kaminpar_tpu.graphs.host import HostGraph as JaxHostGraph
 from kaminpar_tpu_torch.convert import device_graph_from_arrays
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def tt(a):

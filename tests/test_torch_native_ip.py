@@ -17,6 +17,7 @@ from kaminpar_tpu_torch import native
 from kaminpar_tpu_torch.graphs.host import HostGraph
 from kaminpar_tpu_torch.initial import InitialMultilevelBipartitioner
 from kaminpar_tpu_torch.presets import create_context_by_preset_name
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def _weighted(g, seed):

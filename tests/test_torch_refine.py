@@ -24,6 +24,7 @@ from kaminpar_tpu_torch.context import JetRefinementContext as TJetCtx
 from kaminpar_tpu_torch.convert import device_graph_from_arrays
 from kaminpar_tpu_torch.ops import balancer as tbal
 from kaminpar_tpu_torch.ops import metrics as tmetrics
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def tt(a):

@@ -22,6 +22,7 @@ from kaminpar_tpu_torch import _native
 from kaminpar_tpu_torch.convert import device_graph_from_arrays
 from kaminpar_tpu_torch.ops import rating
 from kaminpar_tpu_torch.ops import segments as T
+from torch_threads import one_torch_thread  # noqa: F401
 
 I32_MAX = np.iinfo(np.int32).max
 CAP = 6
@@ -64,7 +65,7 @@ def _weights(tg, seed):
 
 
 def _jax(owner, nb, w, labels, cw, node_w, cap, n_pad, num_slots, salt,
-         require_fit, valid=None, spans=None):
+         require_fit, valid=None, spans=None, communities=None):
     """The JAX composition: scatter_slot_ratings, then best_from_slots
     with the round's salt as tie salt (lp.py)."""
     j = jnp.asarray
@@ -77,16 +78,18 @@ def _jax(owner, nb, w, labels, cw, node_w, cap, n_pad, num_slots, salt,
     best, best_w, w_own = jrating.best_from_slots(
         slot_label, slot_w, j(labels), j(cw), j(node_w), j(cap), salt,
         require_fit=require_fit,
+        communities=None if communities is None else j(communities),
     )
     return [np.asarray(a) for a in (best, best_w, w_own, fully_rated)]
 
 
 def _port(start, end, dst_b, w_b, labels, cw, node_w, cap, num_slots, salt,
-          require_fit):
+          require_fit, communities=None):
     before = rating.scatter_best_from_slots.launches
     out = rating.scatter_best_from_slots(
         tt(start), tt(end), tt(dst_b), tt(w_b), tt(labels), tt(cw),
         tt(node_w), tt(cap), num_slots, salt, require_fit=require_fit,
+        communities=None if communities is None else tt(communities),
     )
     assert rating.scatter_best_from_slots.launches == before  # the twin
     assert out[3].dtype == torch.bool
@@ -127,6 +130,36 @@ def test_full_round_matches_jax_composition(graphs, num_slots, salt, kind):
     assert (best[True] != best[False]).any()  # the mask changed rows
     chosen = best[True]
     assert ((chosen >= 0) & (cw[np.maximum(chosen, 0)] == I32_MAX)).any()
+
+
+@pytest.mark.parametrize("num_slots", [4, 64])
+def test_communities_match_jax_composition(graphs, num_slots):
+    """The v-cycle's community restriction (a 16-block partition as the
+    communities): a full round's twin against the JAX composition with
+    communities=, the feasibility mask on and off.  The mask must bar the
+    best label of some rows."""
+    jg, tg = graphs
+    rng = np.random.default_rng(num_slots)
+    communities = np.full(tg.n_pad, 15, dtype=np.int32)
+    communities[: tg.n] = rng.integers(0, 16, tg.n)
+    labels = _labels(tg, "random", 21)
+    cw, cap = _weights(tg, 4)
+    row_ptr, src, dst, w, node_w = (
+        np.asarray(a) for a in (jg.row_ptr, jg.src, jg.dst, jg.edge_w,
+                                jg.node_w)
+    )
+    spans = (row_ptr[:-1], row_ptr[1:])
+    for fit in (True, False):
+        free = _port(*spans, dst, w, labels, cw, node_w, cap, num_slots, 77,
+                     fit)
+        jout = _jax(src, labels[dst], w, labels, cw, node_w, cap, tg.n_pad,
+                    num_slots, 77, fit, spans=spans, communities=communities)
+        tout = _port(*spans, dst, w, labels, cw, node_w, cap, num_slots, 77,
+                     fit, communities=communities)
+        _same(jout, tout)
+        assert (tout[0] != free[0]).sum() > 100
+        np.testing.assert_array_equal(tout[2], free[2])  # w_own
+        np.testing.assert_array_equal(tout[3], free[3])  # fully_rated
 
 
 @pytest.mark.parametrize("slot_share", [0.3, 1.5])
@@ -216,8 +249,10 @@ def test_dispatch_cpu_twin_and_card_path(graphs, monkeypatch):
     margs = (meta,) * 8
     with pytest.raises(_KernelPathTaken):
         rating.scatter_best_from_slots(*margs, 64, 5)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(_KernelPathTaken):  # communities= takes the kernel
         rating.scatter_best_from_slots(*margs, 64, 5, communities=meta)
+    with pytest.raises(ValueError):  # communities must have n_pad entries
+        rating.scatter_best_from_slots(*margs, 64, 5, communities=meta[:8])
     with pytest.raises(ValueError):  # beyond the kernel's tables
         rating.scatter_best_from_slots(*margs, rating.MAX_FUSED_SLOTS + 1, 5)
     with pytest.raises(ValueError):  # spans must have one entry per row
@@ -258,17 +293,19 @@ def test_fused_kernel_matches_twin_on_card():
     spans = (t(row_ptr[:-1]), t(row_ptr[1:]))
     # the whole buffer, and one that ends inside the first hub's span
     buffers = ((dst, w), (dst[:30_000], w[:30_000]))
+    communities = t(gen.integers(0, 16, n))
     for num_slots in (4, 32, 48, 64):  # 48 takes `%`, not a mask
         for label_range in (n, 300):
             labels = t(gen.integers(-1, label_range, n))
             for dst_b, w_b in buffers:
-                for fit in (True, False):
+                for fit, comm in ((True, None), (False, None),
+                                  (True, communities)):
                     args = (*spans, dst_b, w_b, labels, cw, node_w, cap,
                             num_slots, -11)
-                    a = rating.scatter_best_from_slots(*args,
-                                                       require_fit=fit)
+                    a = rating.scatter_best_from_slots(
+                        *args, require_fit=fit, communities=comm)
                     b = rating.scatter_best_from_slots_twin(
-                        *args, require_fit=fit)
+                        *args, require_fit=fit, communities=comm)
                     torch.cuda.synchronize()
                     for x, y in zip(a, b):
                         assert torch.equal(x, y)

@@ -18,6 +18,7 @@ from kaminpar_tpu.graphs.host import HostGraph as JaxHostGraph
 from kaminpar_tpu.ops import segments as J
 from kaminpar_tpu_torch.convert import device_graph_from_arrays
 from kaminpar_tpu_torch.ops import segments as T
+from torch_threads import one_torch_thread  # noqa: F401
 
 I32 = np.iinfo(np.int32)
 
