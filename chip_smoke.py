@@ -6,9 +6,10 @@ Run from the root of a checkout on a machine with one NVIDIA card:
 
 Phases, each fatal on failure:
   1. print the card's name and power limit (nvidia-smi);
-  2. build the hand-written CUDA kernels (one nvcc per source) and the two
-     native host libraries (g++: ip.cpp, the initial bipartitioner, and
-     fm.cpp, the k-way FM), all at once;
+  2. build the hand-written CUDA kernels (one nvcc per source) and the
+     three native host libraries (g++: ip.cpp, the initial bipartitioner,
+     fm.cpp, the k-way FM, and codec.cpp + codec2.cpp, the compressed
+     graphs' codecs), all at once;
   3. run every kernel at the shapes the main path gives it, hold it
      bitwise against its plain torch twin on the same CUDA tensors, and
      time kernel, twin and (where one exists) a single PyTorch library
@@ -48,6 +49,24 @@ Phases, each fatal on failure:
      medium level 0, the communities a 16-block partition of phase 5:
      bitwise against its twin, with rows whose best label the mask
      changes, and timed beside the call without communities;
+  8a. compressed and streamed inputs at n = 2^14: make_rmat(1<<14,
+     120_000, seed=3) at k=8 on the CPU and on the card with `terapart`
+     and `terapart-largek` (set_graph compresses with v2, the deep scheme
+     uploads chunk by chunk), `external` with 2^15-edge chunks, and
+     `external` under a 3,000,000-byte budget with contraction limit 160
+     (chunks halved to 2^16 edges, two streamed levels): each pair of
+     partitions bitwise equal;
+  8b. those paths at full width, k=16, eps=0.03, seed=1: `terapart` on the
+     medium and the large graph, `external` on the large graph without a
+     budget and under a 96 MiB budget, each checked as in phase 5 and its
+     cut held against the JAX package's (EXPECTED_STREAM_CUTS; the
+     budgeted pin was taken with the JAX memory governor off, which the
+     port does not have).  K1 must launch inside the stream and K1 and K2
+     in the in-core handoff; the stream's peak device allocation must
+     stay below the fine graph's device CSR bytes, and the budgeted run
+     must stream the JAX run's 7 levels.  Each run prints its compression
+     ratio and set_graph time, or its per-level stream record (chunks,
+     walls, overlap, bytes) and the handoff's phase walls;
   6. print the per-kernel JSON line, then the final status line.
 
 The rating engine is chosen per level from the graph's density: the large
@@ -89,6 +108,18 @@ EXPECTED_PRESET_CUTS = {
     ("medium", "mtkahypar-kway"): 250_650,
     ("medium", "vcycle"): 247_293,
 }
+# compressed and streamed inputs (phase 8b), k=16, eps=0.03, seed=1: the
+# cuts of the JAX package's CPU runs (PERF.md gives the commands)
+EXPECTED_STREAM_CUTS = {
+    ("medium", "terapart"): 250_236,
+    ("large", "terapart"): 2_971_596,
+    ("large", "external"): 7_674_977,
+    ("large", "external, 96 MiB"): 7_818_950,
+}
+# the budget of the budgeted external run, and the levels the JAX
+# package streamed under it
+STREAM_BUDGET = 96 << 20
+STREAM_BUDGET_LEVELS = 7
 # seconds since the script started, printed with each partition run
 T_START = time.perf_counter()
 # how device_ms took its times: profiler sessions that recorded device
@@ -218,10 +249,12 @@ def main() -> None:
 
     # -- 2. build
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=3) as pool:
+    with ThreadPoolExecutor(max_workers=4) as pool:
         host_libs = {src: pool.submit(timed_s, build)
                      for src, build in (("ip.cpp", native.build),
-                                        ("fm.cpp", native.build_fm))}
+                                        ("fm.cpp", native.build_fm),
+                                        ("codec.cpp+codec2.cpp",
+                                         native.build_codec))}
         build_s = _native.build()
         host_s = {src: f.result() for src, f in host_libs.items()}
     print(json.dumps({"build_s": round(time.perf_counter() - t0, 3),
@@ -365,7 +398,7 @@ def main() -> None:
     for name, n, m, seed in main_runs:
         _native.EVENT_LOG = {}
         native.ml_bipartition.calls = 0
-        main_parts[name] = run_main(
+        main_parts[name], _ = run_main(
             name, graphs[name][0], kp, counted, dev, metrics,
             device_graph_from_host, torch, "default", EXPECTED_CUTS[name])
         torch.cuda.synchronize()
@@ -430,6 +463,12 @@ def main() -> None:
                           "launches": run_launches, "path_ms": run_ms}),
               flush=True)
 
+    # -- 8. compressed and streamed inputs
+    check_stream_parity(g_small, kp, native, torch)
+    slice_runs.update(run_stream_paths(graphs, kp, counted, path_kernels,
+                                       dev, metrics, device_graph_from_host,
+                                       torch))
+
     # -- 7c. the fused K3 with communities from phase 5's medium partition
     g_med, core_med, perm_med = graphs["medium"]
     communities = check_k3_communities(
@@ -452,6 +491,165 @@ def main() -> None:
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
+
+
+def external_ctx(chunk_edges=None, budget=None, contraction_limit=None):
+    """A configure(ctx) for the external scheme."""
+    def configure(ctx):
+        from kaminpar_tpu_torch.context import PartitioningMode
+
+        ctx.partitioning.mode = PartitioningMode.EXTERNAL
+        if chunk_edges is not None:
+            ctx.external.chunk_edges = chunk_edges
+        if budget is not None:
+            ctx.resilience.memory_budget = float(budget)
+        if contraction_limit is not None:
+            ctx.coarsening.contraction_limit = contraction_limit
+    return configure
+
+
+STREAM_RUNS = {
+    # run: (preset, configure)
+    "terapart": ("terapart", None),
+    "terapart-largek": ("terapart-largek", None),
+    "external": ("default", external_ctx()),
+    "external, 96 MiB": ("default", external_ctx(budget=STREAM_BUDGET)),
+}
+
+
+def check_stream_parity(g_small, kp, native, torch) -> None:
+    """Phase 8a: compressed and streamed inputs at n = 2^14 on the CPU
+    and on the card, each pair of partitions bitwise equal."""
+    runs = {
+        "terapart": ("terapart", None, None),
+        "terapart-largek": ("terapart-largek", None, None),
+        "external, 2^15-edge chunks": (
+            "default", external_ctx(chunk_edges=1 << 15), 1),
+        # contraction limit 160: the default 2000 stops streaming once a
+        # level has at most 4000 nodes, which this graph reaches after one
+        "external, 3,000,000-byte budget": (
+            "default", external_ctx(budget=3_000_000,
+                                    contraction_limit=160), 2),
+    }
+    for run, (preset, configure, levels) in runs.items():
+        parts = {}
+        for device in ("cpu", "cuda"):
+            solver = kp.KaMinPar(preset, device=device)
+            if configure is not None:
+                configure(solver.ctx)
+            t0 = time.perf_counter()
+            parts[device] = solver.set_graph(g_small).compute_partition(
+                k=8, epsilon=0.03, seed=1)
+            record = solver.last_external or {}
+            chunks = [lv["chunks"] for lv in record.get("levels", [])]
+            print(json.dumps({"small_run": run, "device": device,
+                              "streamed_chunks": chunks,
+                              "wall_s": round(time.perf_counter() - t0, 3)}),
+                  flush=True)
+            if levels is not None and len(chunks) != levels:
+                fail(f"n=2^14 {run} on {device}: {len(chunks)} streamed "
+                     f"levels, expected {levels}")
+            if levels is not None and chunks[0] < 2:
+                fail(f"n=2^14 {run} on {device}: level 0 streamed in "
+                     f"{chunks[0]} chunk(s)")
+        if not np.array_equal(parts["cpu"], parts["cuda"]):
+            fail(f"n=2^14 {run}: CPU and CUDA partitions differ in "
+                 f"{int((parts['cpu'] != parts['cuda']).sum())} nodes")
+        print(json.dumps({"small_parity": run, "result": "bitwise-equal"}),
+              flush=True)
+
+
+def run_stream_paths(graphs, kp, counted, path_kernels, dev, metrics,
+                     device_graph_from_host, torch) -> dict:
+    """Phase 8b: the compressed and streamed paths at full width.  For an
+    external run the launches and CUDA-event times are split at the
+    in-core handoff ("<cell>/<run>: stream" and ": handoff"), and the
+    stream's peak device allocation is read there.  Returns the runs'
+    (launches, path_ms) for the kernels line."""
+    from kaminpar_tpu_torch import _native
+    from kaminpar_tpu_torch.external import driver
+
+    at_handoff = {}
+    incore = driver.ExternalPartitioner._incore_partition
+
+    def hooked(self, handoff):
+        torch.cuda.synchronize()
+        at_handoff["launches"] = {fn.__name__: fn.launches for fn in counted}
+        at_handoff["events"] = {name: len(ev) for name, ev in
+                                (_native.EVENT_LOG or {}).items()}
+        at_handoff["peak"] = torch.cuda.max_memory_allocated()
+        return incore(self, handoff)
+
+    driver.ExternalPartitioner._incore_partition = hooked
+    runs = {}
+    try:
+        for (cell, run), pinned in EXPECTED_STREAM_CUTS.items():
+            preset, configure = STREAM_RUNS[run]
+            for fn in counted:
+                fn.launches = 0
+            at_handoff.clear()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            _native.EVENT_LOG = {}
+            _, solver = run_main(cell, graphs[cell][0], kp, counted, dev,
+                                 metrics, device_graph_from_host, torch,
+                                 preset, pinned, configure, run)
+            torch.cuda.synchronize()
+            log, _native.EVENT_LOG = _native.EVENT_LOG, None
+            launches = {fn.__name__: fn.launches for fn in counted}
+            run_ms = {name: sum(a.elapsed_time(b) for a, b in ev)
+                      for name, ev in log.items()}
+            key = f"{cell}/{run}"
+            if solver.last_external is None:
+                needed = path_kernels[:2] if cell == "large" else path_kernels
+                for fn in needed:
+                    if launches[fn.__name__] <= 0:
+                        fail(f"{key}: kernel {fn.__name__} was never "
+                             "launched")
+                runs[key] = (launches, run_ms)
+                print(json.dumps({
+                    "stream_path": key,
+                    "compression_ratio": solver.graph().compression_ratio(),
+                    "compressed_bytes": solver.graph().memory_bytes(),
+                    "launches": launches, "path_ms": run_ms}), flush=True)
+                continue
+            stream = at_handoff["launches"]
+            handoff = {k: launches[k] - stream[k] for k in launches}
+            stream_ms = {name: sum(a.elapsed_time(b) for a, b in
+                                   log[name][: at_handoff["events"].get(
+                                       name, 0)])
+                         for name in log}
+            handoff_ms = {k: run_ms[k] - stream_ms.get(k, 0.0)
+                          for k in run_ms}
+            if stream["gather_i32"] <= 0:
+                fail(f"{key}: K1 was never launched inside the stream")
+            for fn in path_kernels[:2]:
+                if handoff[fn.__name__] <= 0:
+                    fail(f"{key}: kernel {fn.__name__} was never launched "
+                         "in the in-core handoff")
+            record = solver.last_external
+            peak = at_handoff["peak"] - base
+            if peak >= record["fine_csr_bytes"]:
+                fail(f"{key}: the stream's peak device allocation {peak} "
+                     f"reached the fine graph's CSR bytes "
+                     f"{record['fine_csr_bytes']}")
+            levels = record["streamed_levels"]
+            if run.endswith("MiB") and levels != STREAM_BUDGET_LEVELS:
+                fail(f"{key}: streamed {levels} levels, the JAX package "
+                     f"streamed {STREAM_BUDGET_LEVELS}")
+            runs[f"{key}: stream"] = (stream, stream_ms)
+            runs[f"{key}: handoff"] = (handoff, handoff_ms)
+            print(json.dumps({
+                "stream_path": key, "external": record,
+                "stream_peak_allocated_bytes": peak,
+                "phase_s": solver.last_timings,
+                "stream_launches": stream, "handoff_launches": handoff,
+                "stream_ms": stream_ms, "handoff_ms": handoff_ms}),
+                flush=True)
+    finally:
+        driver.ExternalPartitioner._incore_partition = incore
+    return runs
 
 
 def k3_bound_ms(rows: int, edges: int, num_slots: int) -> tuple:
@@ -731,17 +929,23 @@ def check_k2_edge_cases(dg, gather, segments, rng, dev, torch) -> None:
 
 
 def run_main(name, graph, kp, counted, dev, metrics, device_graph_from_host,
-             torch, preset, expected_cut):
-    """Partition one graph with `preset` through the public entry point
-    and check the result against `expected_cut`; prints its cut,
-    imbalance, walls and launches and returns the partition."""
+             torch, preset, expected_cut, configure=None, run=None):
+    """Partition one graph with `preset` (after `configure(ctx)`) through
+    the public entry point and check the result against `expected_cut`;
+    prints its cut, imbalance, walls and launches and returns the
+    partition and the solver."""
     from kaminpar_tpu_torch import _native
 
     from kaminpar_tpu_torch import native
 
     before = {fn.__name__: fn.launches for fn in counted}
     fm_calls = native.fm_refine.calls
-    solver = kp.KaMinPar(preset, device="cuda").set_graph(graph)
+    solver = kp.KaMinPar(preset, device="cuda")
+    if configure is not None:
+        configure(solver.ctx)
+    t0 = time.perf_counter()
+    solver.set_graph(graph)
+    set_graph_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     partition = solver.compute_partition(k=K_MAIN, epsilon=0.03, seed=1)
     torch.cuda.synchronize()
@@ -777,7 +981,8 @@ def run_main(name, graph, kp, counted, dev, metrics, device_graph_from_host,
              f"{expected_cut}")
     perfect = -(-graph.total_node_weight // K_MAIN)
     print(json.dumps({
-        "main_path": name, "preset": preset, "pinned": expected_cut,
+        "main_path": name, "preset": run or preset, "pinned": expected_cut,
+        "set_graph_s": set_graph_s,
         "n": graph.n, "m": graph.m, "k": K_MAIN,
         "ip_s": solver.last_timings.get("initial-partitioning"),
         "cut": cut_host, "imbalance": float(bw.max() / perfect - 1.0),
@@ -789,7 +994,7 @@ def run_main(name, graph, kp, counted, dev, metrics, device_graph_from_host,
         "launches": {fn.__name__: fn.launches - before[fn.__name__]
                      for fn in counted},
     }), flush=True)
-    return partition
+    return partition, solver
 
 
 if __name__ == "__main__":

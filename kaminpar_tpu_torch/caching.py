@@ -10,3 +10,8 @@ def pad_size(x: int, granularity: int = 256) -> int:
     if x <= granularity:
         return granularity
     return 1 << (x - 1).bit_length()
+
+
+def pad_k(k: int) -> int:
+    """The block-count bucket: k rounded up to a power of two (>= 2)."""
+    return max(2, 1 << (int(k) - 1).bit_length())

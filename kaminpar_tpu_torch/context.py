@@ -1,9 +1,9 @@
 """Configuration tree (analog of include/kaminpar-shm/kaminpar.h Context).
 
 Own copy of kaminpar_tpu/context.py (numpy only), without the subtrees of
-the JAX package's compressed and streamed inputs, dynamic sessions, debug
-dumps and checkpoints, which this package does not run, and without the
-knobs that neither package reads.
+the JAX package's dynamic sessions, debug dumps and checkpoints, which
+this package does not run, and without the knobs that neither package
+reads (`forced_kc_level` is kept: the `terapart-largek` preset sets it).
 
 The reference models every algorithmic choice as an enum + plain-struct tree
 (Context -> PartitioningContext/CoarseningContext/InitialPartitioningContext/
@@ -123,6 +123,10 @@ class ClusteringContext:
     # desired-cluster-count floor (n / shrink_factor); accepted for preset
     # parity, not enforced by the bulk-sync clusterer (as in the JAX package)
     shrink_factor: float = float("inf")
+    # terapart-largek: force an extra coarsening level at the
+    # k-contraction boundary (presets.cc create_terapart_largek_context);
+    # set for preset parity, read by neither package
+    forced_kc_level: bool = False
 
 
 @dataclass
@@ -374,13 +378,54 @@ class PartitionContext:
 
 
 @dataclass
+class GraphCompressionContext:
+    """Compressed-graph (TeraPart) mode: `set_graph` stores the host graph
+    compressed (graphs/compressed.py) and the deep scheme uploads it chunk
+    by chunk; the device path is unchanged."""
+
+    enabled: bool = False
+
+
+@dataclass
 class ResilienceContext:
     """Output-gate policy: `output_gate` runs the end-of-pipeline
     strict-balance validator, `repair` lets it fix balance violations
-    with the greedy host pass."""
+    with the greedy host pass.
+
+    `memory_budget` is a declared device-memory budget in bytes (0 = take
+    KAMINPAR_TPU_HBM_BYTES, unset = none).  This package has no memory
+    governor: a budget acts only on the external scheme, whose chunk size
+    and stream depth it sets (resilience/memory.py)."""
 
     output_gate: bool = True
     repair: bool = True
+    memory_budget: float = 0.0
+
+
+@dataclass
+class ExternalContext:
+    """Out-of-core streaming scheme (external/): the fine graph stays in
+    host RAM (compressed chunks, plain CSR or a generator spec that
+    regenerates chunks on demand) or on disk, and LP rating and
+    contraction stream over fixed-shape padded edge-block chunks on the
+    device — only coarse levels are ever device-resident."""
+
+    #: Target edges per streamed chunk (every chunk of a level shares one
+    #: padded edge-block size: the largest chunk's).
+    chunk_edges: int = 1 << 22
+    #: Streaming LP rounds per level (bulk-synchronous: moves are rated
+    #: against the round-start labels and applied once per round, which
+    #: makes the result independent of the chunk count).
+    lp_rounds: int = 3
+    #: Stream at least this many levels before the in-core handoff even
+    #: without a memory budget (with one, streaming continues until the
+    #: coarse level's estimate fits it).
+    min_stream_levels: int = 1
+    #: Cap on streamed levels (stall safety).
+    max_stream_levels: int = 32
+    #: Disk spill tier: when set, the level-0 chunks are written here once
+    #: and re-read on every later pass instead of decoded or regenerated.
+    spill_dir: str = ""
 
 
 def context_to_dict(obj):
@@ -420,7 +465,11 @@ class Context:
     )
     refinement: RefinementContext = field(default_factory=RefinementContext)
     parallel: ParallelContext = field(default_factory=ParallelContext)
+    compression: GraphCompressionContext = field(
+        default_factory=GraphCompressionContext
+    )
     resilience: ResilienceContext = field(default_factory=ResilienceContext)
+    external: ExternalContext = field(default_factory=ExternalContext)
     seed: int = 0
 
     def copy(self) -> "Context":

@@ -20,7 +20,7 @@ the label bit widths) identical on the CPU and the card.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Optional
+from typing import List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -140,6 +140,116 @@ def device_graph_from_host(
     node_w = np.zeros(n_pad, dtype=np.int32)
     node_w[:n] = graph.node_weight_array().astype(np.int32)
     return _device_graph(row_ptr, src, dst, edge_w, node_w, n, m, device)
+
+
+class PinnedStaging:
+    """Double-buffered pinned host staging for chunked uploads.
+
+    `copy_into(outs, arrays)` copies each numpy array into a page-locked
+    host buffer and from there into the matching device tensor with a
+    non-blocking copy, so the host goes on decoding the next chunk while
+    the copy runs.  Two buffer sets take turns, each with a CUDA event
+    recorded after its copies: before a set is refilled the host waits
+    on its event, since refilling a page-locked buffer whose copy is
+    still in flight would corrupt the chunk being copied.  On the CPU
+    the arrays are copied directly."""
+
+    def __init__(self, device: torch.device, capacity: int, num_arrays: int):
+        self.device = device
+        self._cuda = device.type == "cuda"
+        self._bufs: List[List[torch.Tensor]] = []
+        self._events: List[Optional[torch.cuda.Event]] = [None, None]
+        self._turn = 0
+        if self._cuda:
+            self._bufs = [
+                [torch.empty(max(int(capacity), 1), dtype=torch.int32,
+                             pin_memory=True) for _ in range(num_arrays)]
+                for _ in range(2)
+            ]
+
+    def copy_into(self, outs: Sequence[torch.Tensor],
+                  arrays: Sequence[np.ndarray]) -> None:
+        if not self._cuda:
+            for out, arr in zip(outs, arrays):
+                out.copy_(torch.from_numpy(np.ascontiguousarray(
+                    arr, dtype=np.int32)))
+            return
+        b = self._turn
+        self._turn ^= 1
+        if self._events[b] is not None:
+            self._events[b].synchronize()
+        for out, arr, buf in zip(outs, arrays, self._bufs[b]):
+            n = len(arr)
+            buf.numpy()[:n] = arr
+            out.copy_(buf[:n], non_blocking=True)
+        event = torch.cuda.Event()
+        event.record()
+        self._events[b] = event
+
+    def stage(self, *arrays: np.ndarray) -> List[torch.Tensor]:
+        """Fresh device tensors holding `arrays` (int32)."""
+        outs = [torch.empty(len(a), dtype=torch.int32, device=self.device)
+                for a in arrays]
+        self.copy_into(outs, arrays)
+        return outs
+
+
+def device_graph_from_compressed(
+    cgraph,
+    device: DeviceLike = "cuda",
+    n_pad: Optional[int] = None,
+    m_pad: Optional[int] = None,
+    chunk_nodes: int = 1 << 18,
+) -> DeviceGraph:
+    """Upload a CompressedHostGraph into the padded device layout without
+    ever building the flat CSR on the host: node-range chunks are decoded
+    (`decode_range`), staged through pinned buffers and copied into
+    their slices of the device edge arrays, whose pad tail is filled on
+    the device.  Peak host memory is the compressed streams + one chunk
+    + O(n).  The result equals `device_graph_from_host(cgraph.decode())`
+    bitwise (JAX package: graphs/csr.py device_graph_from_compressed)."""
+    dev = resolve_device(device)
+    n, m = cgraph.n, cgraph.m
+    n_floor, m_floor = shape_floors()
+    n_pad = n_pad if n_pad is not None else pad_size(n + 1, n_floor)
+    m_pad = m_pad if m_pad is not None else pad_size(max(m, 1), m_floor)
+    if n_pad < n + 1 or m_pad < m:
+        raise ValueError("pad sizes too small")
+    pad_node = n_pad - 1
+
+    # the O(n) arrays come straight from the (uncompressed) offsets
+    xadj = np.asarray(cgraph.xadj, dtype=np.int64)
+    row_ptr = np.full(n_pad + 1, m, dtype=np.int32)
+    row_ptr[: n + 1] = xadj.astype(np.int32)
+    node_w = np.zeros(n_pad, dtype=np.int32)
+    node_w[:n] = cgraph.node_weight_array().astype(np.int32)
+
+    src = torch.full((m_pad,), pad_node, dtype=torch.int32, device=dev)
+    dst = torch.full((m_pad,), pad_node, dtype=torch.int32, device=dev)
+    edge_w = torch.zeros(m_pad, dtype=torch.int32, device=dev)
+    starts = list(range(0, n, chunk_nodes))
+    max_edges = max((int(xadj[min(n, v0 + chunk_nodes)] - xadj[v0])
+                     for v0 in starts), default=0)
+    staging = PinnedStaging(dev, max_edges, 3)
+    for v0 in starts:
+        v1 = min(n, v0 + chunk_nodes)
+        e0, e1 = int(xadj[v0]), int(xadj[v1])
+        xr, adj, ew = cgraph.decode_range(v0, v1)
+        src_c = np.repeat(np.arange(v0, v1, dtype=np.int32),
+                          np.diff(np.asarray(xr, dtype=np.int64)))
+        outs = [src[e0:e1], dst[e0:e1]]
+        arrays = [src_c, np.asarray(adj, dtype=np.int32)]
+        if ew is None:
+            edge_w[e0:e1] = 1
+        else:
+            outs.append(edge_w[e0:e1])
+            arrays.append(np.asarray(ew).astype(np.int32))
+        staging.copy_into(outs, arrays)
+        del xr, adj, ew, src_c  # keep the host high-water at one chunk
+    return DeviceGraph(
+        torch.from_numpy(row_ptr).to(dev), src, dst, edge_w,
+        torch.from_numpy(node_w).to(dev), int(n), int(m),
+    )
 
 
 def host_graph_from_device(graph: DeviceGraph) -> HostGraph:

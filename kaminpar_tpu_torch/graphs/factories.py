@@ -3,6 +3,8 @@ standing in for the reference's KaGen inputs (kaminpar-io/dist_skagen.cc).
 
 Own copy of the two generators of kaminpar_tpu/graphs/factories.py: they
 draw the same graphs for the same seed.  An omitted seed means seed 0.
+`parse_gen_spec` reads the KaGen-style option strings that the streamed
+generators (io/skagen.py) take.
 """
 
 from __future__ import annotations
@@ -21,6 +23,25 @@ def rgg2d_radius(n: int, avg_degree: float) -> float:
     """Connection radius giving ~avg_degree expected neighbors on the
     unit square."""
     return float(np.sqrt(avg_degree / (np.pi * max(n, 1))))
+
+
+def rgg3d_radius(n: int, avg_degree: float) -> float:
+    """Connection radius giving ~avg_degree expected neighbors in the
+    unit cube."""
+    return float((avg_degree / (4.0 / 3.0 * np.pi * max(n, 1))) ** (1.0 / 3.0))
+
+
+def parse_gen_spec(spec: str) -> tuple:
+    """A KaGen-style option string (``"rmat;n=65536;m=1000000;seed=1"``,
+    an optional ``gen:`` prefix) as (name, kwargs): a value with a dot
+    is a float, any other an int."""
+    parts = [p for p in spec.replace("gen:", "", 1).split(";") if p]
+    name = parts[0]
+    kwargs = {}
+    for p in parts[1:]:
+        key, _, value = p.partition("=")
+        kwargs[key.strip()] = float(value) if "." in value else int(value)
+    return name, kwargs
 
 
 def make_rgg2d(

@@ -6,10 +6,15 @@ ends with the output gate's check-and-repair.
     part = KaMinPar("default", device="cuda").set_graph(g).compute_partition(
         k=16, epsilon=0.03, seed=1)
 
-Schemes: deep multilevel, k-way, recursive bipartitioning and v-cycles on
-one device.  The JAX package's compressed and streamed inputs (the
-`terapart*` presets and the `external` scheme), deadlines, checkpoints,
-memory ladder and telemetry are not part of this package.
+Schemes: deep multilevel, k-way, recursive bipartitioning, v-cycles and
+the out-of-core `external` scheme on one device.  Inputs: a HostGraph, a
+CompressedHostGraph (or a HostGraph under `ctx.compression.enabled`, the
+`terapart*` presets, which `set_graph` compresses), and for the external
+scheme a StreamedSpecGraph.  Compressed inputs stay compressed through
+the deep and external schemes (chunked upload, chunked metrics); the
+other schemes decode them once.  The JAX package's deadlines,
+checkpoints, memory governor and telemetry are not part of this package:
+a declared memory budget acts only on the external scheme.
 """
 
 from __future__ import annotations
@@ -20,8 +25,19 @@ import numpy as np
 
 from .context import Context, PartitioningMode
 from .device import DeviceLike, resolve_device
+from .external.chunkstore import (
+    StreamedSpecGraph,
+    streamed_partition_metrics,
+)
+from .graphs.compressed import (
+    CompressedHostGraph,
+    compress_host_graph,
+    compressed_partition_metrics,
+    extract_core_compressed,
+)
 from .graphs.host import (
     HostGraph,
+    NodePermutation,
     count_isolated_nodes,
     host_partition_metrics,
     remove_isolated_nodes,
@@ -50,14 +66,26 @@ class KaMinPar:
         self.last_levels: List[Tuple[int, int]] = []
         # the output gate's verdict on the last compute_partition call
         self.last_gate: Optional[dict] = None
+        # the external scheme's record of its last run (levels, chunks,
+        # bytes, overlap), None after a run of another scheme
+        self.last_external: Optional[dict] = None
+        self._decoded = None
 
-    def set_graph(self, graph: HostGraph, validate: bool = False) -> "KaMinPar":
-        if validate:
-            validate_graph(graph)
-        self._graph = graph
+    def set_graph(self, graph, validate: bool = False) -> "KaMinPar":
+        """A HostGraph, a CompressedHostGraph or a StreamedSpecGraph.  With
+        ``ctx.compression.enabled`` a HostGraph is stored compressed."""
+        if isinstance(graph, (CompressedHostGraph, StreamedSpecGraph)):
+            # their consumers stream (decode_range, chunk regeneration)
+            self._graph = graph
+        else:
+            if validate:
+                validate_graph(graph)
+            if self.ctx.compression.enabled:
+                graph = compress_host_graph(graph)
+            self._graph = graph
         return self
 
-    def graph(self) -> Optional[HostGraph]:
+    def graph(self):
         return self._graph
 
     def compute_partition(
@@ -72,6 +100,14 @@ class KaMinPar:
             raise RuntimeError("no graph set; call set_graph() first")
         graph = self._graph
         ctx = self.ctx
+        if isinstance(graph, CompressedHostGraph) and self._must_decode():
+            graph = self._decode_cached(graph)
+        streaming_src = isinstance(graph, StreamedSpecGraph)
+        if streaming_src and ctx.partitioning.mode != PartitioningMode.EXTERNAL:
+            raise ValueError(
+                "a generator-spec graph is partitioned by the external "
+                "scheme only"
+            )
         if seed is not None:
             ctx.seed = int(seed)
         ctx.partition.setup(
@@ -84,9 +120,25 @@ class KaMinPar:
         self._validate_parameters()
         self.last_timings = {}
         self.last_levels = []
+        self.last_external = None
 
         num_isolated = count_isolated_nodes(graph)
-        if num_isolated and graph.n > num_isolated:
+        if (num_isolated and graph.n > num_isolated
+                and isinstance(graph, CompressedHostGraph)):
+            # the core is extracted compressed to compressed (chunked
+            # re-encode); isolated nodes refill blocks by headroom
+            core_cg, core_ids, iso_ids = extract_core_compressed(graph)
+            part_core = self._partition_core(core_cg)
+            new_to_old = np.concatenate([core_ids, iso_ids])
+            old_to_new = np.empty(graph.n, dtype=np.int64)
+            old_to_new[new_to_old] = np.arange(graph.n)
+            partition = self._reintegrate_isolated(
+                graph, core_cg, NodePermutation(old_to_new, new_to_old),
+                part_core,
+            )
+        elif num_isolated and graph.n > num_isolated and not streaming_src:
+            # a generator-spec graph keeps its isolated nodes in the
+            # stream: the external scheme places them
             core, perm, _ = remove_isolated_nodes(graph)
             part_core = self._partition_core(core)
             partition = self._reintegrate_isolated(graph, core, perm,
@@ -101,9 +153,7 @@ class KaMinPar:
             partition = self._partition_core(graph)
 
         if ctx.resilience.output_gate:
-            reported = host_partition_metrics(
-                graph, partition, ctx.partition.k
-            )["cut"]
+            reported = self.result_metrics(graph, partition)["cut"]
             partition, self.last_gate = gate.check_and_repair(
                 graph, partition, ctx.partition,
                 repair=ctx.resilience.repair, reported_cut=reported,
@@ -114,11 +164,8 @@ class KaMinPar:
         """Scheme dispatch (factories.cc:40-57 create_partitioner)."""
         mode = self.ctx.partitioning.mode
         if mode == PartitioningMode.EXTERNAL:
-            raise NotImplementedError(
-                "partitioning scheme 'external' is not ported yet: it comes "
-                "with the compressed and streamed inputs slice"
-            )
-        if mode == PartitioningMode.DEEP:
+            from .external.driver import ExternalPartitioner as cls
+        elif mode == PartitioningMode.DEEP:
             from .partitioning.deep import DeepMultilevelPartitioner as cls
         elif mode == PartitioningMode.KWAY:
             from .partitioning.kway import KWayMultilevelPartitioner as cls
@@ -134,7 +181,42 @@ class KaMinPar:
         part = partitioner.partition(graph)
         self.last_timings = dict(partitioner.timings)
         self.last_levels = list(partitioner.levels)
+        if mode == PartitioningMode.EXTERNAL:
+            self.last_external = partitioner.section
         return part
+
+    def _must_decode(self) -> bool:
+        """Whether a compressed input needs the full host CSR: every scheme
+        but the deep one (chunked upload) and the external one (chunked
+        stream) reads host rows."""
+        return self.ctx.partitioning.mode not in (
+            PartitioningMode.DEEP, PartitioningMode.EXTERNAL,
+        )
+
+    def _decode_cached(self, cgraph):
+        """The full decode of a compressed input, kept for repeated
+        compute_partition calls on it."""
+        if self._decoded is None or self._decoded[0] is not cgraph:
+            self._decoded = (cgraph, cgraph.decode())
+        return self._decoded[1]
+
+    def result_metrics(self, graph, partition) -> dict:
+        """cut, imbalance and feasibility of a partition; compressed and
+        generator-spec graphs are swept chunk by chunk."""
+        p = self.ctx.partition
+        if isinstance(graph, CompressedHostGraph):
+            m = compressed_partition_metrics(graph, partition, p.k)
+        elif isinstance(graph, StreamedSpecGraph):
+            m = streamed_partition_metrics(graph, partition, p.k)
+        else:
+            m = host_partition_metrics(graph, partition, p.k)
+        return {
+            "cut": int(m["cut"]),
+            "imbalance": float(m["imbalance"]),
+            "feasible": bool(
+                (m["block_weights"] <= p.max_block_weights).all()
+            ),
+        }
 
     def _validate_parameters(self) -> None:
         p = self.ctx.partition

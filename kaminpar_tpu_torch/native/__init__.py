@@ -1,20 +1,26 @@
-"""The native host libraries: the multilevel 2-way bipartitioner (ip.cpp)
-and the localized batch k-way FM (fm.cpp).
+"""The native host libraries: the multilevel 2-way bipartitioner (ip.cpp),
+the localized batch k-way FM (fm.cpp) and the neighborhood codecs of
+compressed graphs (codec.cpp, the varint gap codec, and codec2.cpp, the
+"v2" codec: intervals, StreamVByte-class residuals, varint weights).
 
-Both sources are this package's own byte-for-byte copies of the JAX
-package's.  Each is compiled by ``g++`` at first use into ``_build/``
-beside the CUDA kernels, with the flags the JAX package uses for them, so
-that their floating-point stopping rules compile the same way; a
-library's file name carries a hash of its source and the flags.  Nothing
-is built when this module is imported, and a build that is attempted and
-fails raises: no path falls back quietly to numpy.
+Every source is this package's own byte-for-byte copy of the JAX
+package's.  Each library is compiled by ``g++`` at first use into
+``_build/`` beside the CUDA kernels, with the flags the JAX package uses
+(the codecs add ``-mssse3`` on x86 for codec2's SIMD residual decode), so
+that floating-point stopping rules compile the same way; a library's
+file name carries a hash of its sources and the flags.  Nothing is built
+when this module is imported, and a build that is attempted and fails
+raises: no path falls back quietly to numpy.
 
 The native paths are the defaults, as in the JAX package.
 ``KAMINPAR_TPU_NO_NATIVE_IP=1`` selects the numpy bipartitioner
 (initial/), and so does a host without ``g++``;
 ``KAMINPAR_TPU_NO_NATIVE_FM=1`` selects the numpy FM (refinement/fm.py).
 ``ml_bipartition.calls`` and ``fm_refine.calls`` count the native calls of
-this process.
+this process.  The gap codec has a numpy twin (``encode_gaps_np``,
+``decode_gaps_np``) that a host without ``g++`` takes; the v2 codec is
+native only, and ``codec="auto"`` means v2 whenever the codec library is
+built or buildable (``codec_enabled``).
 """
 
 from __future__ import annotations
@@ -22,6 +28,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import platform
 import shutil
 import subprocess
 import threading
@@ -37,8 +44,16 @@ NO_NATIVE_IP_ENV = "KAMINPAR_TPU_NO_NATIVE_IP"
 NO_NATIVE_FM_ENV = "KAMINPAR_TPU_NO_NATIVE_FM"
 SOURCE = Path(__file__).resolve().with_name("ip.cpp")
 FM_SOURCE = Path(__file__).resolve().with_name("fm.cpp")
+CODEC_SOURCES = tuple(
+    Path(__file__).resolve().with_name(f) for f in ("codec.cpp", "codec2.cpp")
+)
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
 GXX_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++20", "-pthread")
+# codec2.cpp's SIMD residual decode is guarded by __SSSE3__ (scalar on
+# other architectures), as in the JAX package's build
+CODEC_FLAGS = GXX_FLAGS + (
+    ("-mssse3",) if platform.machine() in ("x86_64", "AMD64", "i686") else ()
+)
 
 # fm_refine's refusal sentinel, as in fm.cpp: the sparse engine's 16-bit
 # block tags cannot hold k and the dense (n, k) table is unaffordable
@@ -46,6 +61,7 @@ FM_REFUSED = -(1 << 63)
 
 _lib: Optional[ctypes.CDLL] = None
 _fm_lib: Optional[ctypes.CDLL] = None
+_codec_lib: Optional[ctypes.CDLL] = None
 # guards the lazy loads and the call counters: the host extension calls
 # ml_bipartition from worker threads
 _lock = threading.Lock()
@@ -53,27 +69,31 @@ _lock = threading.Lock()
 _I32, _I64, _F64 = ctypes.c_int32, ctypes.c_int64, ctypes.c_double
 _P_I64 = np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS")
 _P_I32 = np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS")
+_P_U8 = np.ctypeslib.ndpointer(np.uint8, flags="C_CONTIGUOUS")
 
 
-def _lib_path(source: Path) -> Path:
+def _lib_path(sources, flags=GXX_FLAGS) -> Path:
+    sources = (sources,) if isinstance(sources, Path) else tuple(sources)
     digest = hashlib.sha256(
-        source.read_bytes() + " ".join(GXX_FLAGS).encode()
+        b"".join(s.read_bytes() for s in sources) + " ".join(flags).encode()
     ).hexdigest()
-    return BUILD_DIR / f"{source.stem}-{digest[:16]}.so"
+    return BUILD_DIR / f"{sources[0].stem}-{digest[:16]}.so"
 
 
-def _build(source: Path) -> Path:
-    out = _lib_path(source)
+def _build(sources, flags=GXX_FLAGS) -> Path:
+    sources = (sources,) if isinstance(sources, Path) else tuple(sources)
+    out = _lib_path(sources, flags)
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
     proc = subprocess.run(
-        ["g++", *GXX_FLAGS, str(source), "-o", str(tmp)],
+        ["g++", *flags, *(str(s) for s in sources), "-o", str(tmp)],
         capture_output=True, text=True,
     )
     if proc.returncode != 0:
-        raise RuntimeError(f"g++ failed for {source.name}:\n{proc.stderr}")
+        names = ", ".join(s.name for s in sources)
+        raise RuntimeError(f"g++ failed for {names}:\n{proc.stderr}")
     os.replace(tmp, out)
     return out
 
@@ -98,6 +118,21 @@ def build_fm() -> Path:
     """Compile fm.cpp unless a current build exists; returns the library's
     path.  Raises RuntimeError when g++ fails."""
     return _build(FM_SOURCE)
+
+
+def build_codec() -> Path:
+    """Compile codec.cpp and codec2.cpp into one library unless a current
+    build exists; returns its path.  Raises RuntimeError when g++ fails."""
+    return _build(CODEC_SOURCES, CODEC_FLAGS)
+
+
+def codec_enabled() -> bool:
+    """Whether the codec library is built or buildable (a host with g++):
+    then the gap codec runs natively and ``codec="auto"`` picks v2."""
+    return _codec_lib is not None or _lib_path(
+        CODEC_SOURCES, CODEC_FLAGS).exists() or (
+        shutil.which("g++") is not None
+    )
 
 
 def _load() -> ctypes.CDLL:
@@ -134,6 +169,39 @@ def _load_fm() -> ctypes.CDLL:
                 ]
             _fm_lib = lib
         return _fm_lib
+
+
+def _load_codec() -> ctypes.CDLL:
+    global _codec_lib
+    with _lock:
+        if _codec_lib is None:
+            lib = ctypes.CDLL(str(build_codec()))
+            for name, ret, args in (
+                ("kmp_encode_gaps_size", _I64, [_I64, _P_I64, _P_I32, _P_I64]),
+                ("kmp_encode_gaps", None,
+                 [_I64, _P_I64, _P_I32, _P_I64, _P_U8]),
+                ("kmp_decode_gaps", None,
+                 [_I64, _P_I64, _P_I64, _P_U8, _P_I32]),
+                ("kmp_decode_node", _I64,
+                 [_I64, _P_I64, _P_I64, _P_U8, _P_I32]),
+                ("kmp_encode_v2_size", _I64, [_I64, _P_I64, _P_I32, _P_I64]),
+                ("kmp_encode_v2", None,
+                 [_I64, _P_I64, _P_I32, _P_I64, _P_U8]),
+                ("kmp_decode_v2", None,
+                 [_I64, _P_I64, _P_I64, _P_U8, _P_I32]),
+                ("kmp_decode_v2_node", _I64,
+                 [_I64, _P_I64, _P_I64, _P_U8, _P_I32]),
+                ("kmp_encode_v2_weights_size", _I64,
+                 [_I64, _P_I64, _P_I32, _P_I64, _P_I64]),
+                ("kmp_encode_v2_weights", None,
+                 [_I64, _P_I64, _P_I32, _P_I64, _P_I64, _P_U8]),
+                ("kmp_decode_v2_weights", None,
+                 [_I64, _P_I64, _P_I64, _P_U8, _P_I64]),
+            ):
+                fn = getattr(lib, name)
+                fn.restype, fn.argtypes = ret, args
+            _codec_lib = lib
+        return _codec_lib
 
 
 def _count(fn) -> None:
@@ -226,3 +294,182 @@ def fm_refine(graph: HostGraph, partition: np.ndarray, k: int,
 
 
 fm_refine.calls = 0
+
+
+# --------------------------------------------------------------------------
+# neighborhood codecs (codec.cpp, codec2.cpp)
+# --------------------------------------------------------------------------
+
+
+def _i64(a) -> np.ndarray:
+    return np.ascontiguousarray(a, dtype=np.int64)
+
+
+def _i32(a) -> np.ndarray:
+    return np.ascontiguousarray(a, dtype=np.int32)
+
+
+def _u8(a) -> np.ndarray:
+    return np.ascontiguousarray(a, dtype=np.uint8)
+
+
+def encode_gaps(xadj, adjncy):
+    """Encode sorted CSR neighborhoods as varint gap streams; returns
+    (bytes u8[total], offsets i64[n+1]).  Native when the codec library
+    is built or buildable, else the numpy twin (the same bytes)."""
+    n = len(xadj) - 1
+    xadj, adjncy = _i64(xadj), _i32(adjncy)
+    if not codec_enabled():
+        return encode_gaps_np(xadj, adjncy)
+    lib = _load_codec()
+    offsets = np.zeros(n + 1, dtype=np.int64)
+    out = np.empty(lib.kmp_encode_gaps_size(n, xadj, adjncy, offsets),
+                   dtype=np.uint8)
+    lib.kmp_encode_gaps(n, xadj, adjncy, offsets, out)
+    return out, offsets
+
+
+def decode_gaps(xadj, offsets, data) -> np.ndarray:
+    """Inverse of encode_gaps; returns adjncy i32[m]."""
+    n = len(xadj) - 1
+    xadj, offsets, data = _i64(xadj), _i64(offsets), _u8(data)
+    out = np.empty(int(xadj[-1]), dtype=np.int32)
+    if not codec_enabled():
+        return decode_gaps_np(xadj, offsets, data, out)
+    _load_codec().kmp_decode_gaps(n, xadj, offsets, data, out)
+    return out
+
+
+def decode_node(u: int, xadj, offsets, data) -> np.ndarray:
+    """One node's neighborhood from a gap stream."""
+    deg = int(xadj[u + 1] - xadj[u])
+    out = np.empty(deg, dtype=np.int32)
+    if deg == 0:
+        return out
+    if not codec_enabled():
+        piece = _u8(data[int(offsets[u]): int(offsets[u + 1])])
+        return decode_gaps_np(np.array([0, deg], dtype=np.int64),
+                              np.zeros(2, dtype=np.int64), piece, out)
+    _load_codec().kmp_decode_node(int(u), _i64(xadj), _i64(offsets),
+                                  _u8(data), out)
+    return out
+
+
+def _varint_sizes_np(vals: np.ndarray) -> np.ndarray:
+    v = vals.astype(np.uint64)
+    sizes = np.ones(len(vals), dtype=np.int64)
+    for k in range(1, 5):
+        sizes += (v >= (1 << (7 * k))).astype(np.int64)
+    return sizes
+
+
+def encode_gaps_np(xadj, adjncy):
+    """The numpy twin of encode_gaps (byte-identical)."""
+    xadj, adjncy = _i64(xadj), _i32(adjncy)
+    m = int(xadj[-1])
+    first_mask = np.zeros(m, dtype=bool)
+    nonempty = xadj[1:] > xadj[:-1]
+    first_mask[xadj[:-1][nonempty]] = True
+    gaps = np.empty(m, dtype=np.uint32)
+    if m:
+        gaps[1:] = np.diff(adjncy.astype(np.int64)).astype(np.uint32)
+        gaps[first_mask] = adjncy[first_mask].astype(np.uint32) + 1
+    sizes = _varint_sizes_np(gaps) if m else np.zeros(0, dtype=np.int64)
+    csum = np.concatenate([[0], np.cumsum(sizes)])
+    offsets = csum[xadj]
+    out = np.zeros(int(csum[-1]), dtype=np.uint8)
+    # byte-by-byte scatter, vectorized over the byte position
+    pos = csum[:-1].copy() if m else csum[:0]
+    rem = gaps.copy()
+    active = np.ones(m, dtype=bool)
+    while m and active.any():
+        idx = np.nonzero(active)[0]
+        b = (rem[idx] & 0x7F).astype(np.uint8)
+        more = rem[idx] >= 0x80
+        out[pos[idx]] = b | (more.astype(np.uint8) << 7)
+        pos[idx] += 1
+        rem[idx] >>= 7
+        active[idx] = more
+    return out, offsets
+
+
+def decode_gaps_np(xadj, offsets, data, out=None) -> np.ndarray:
+    """The numpy twin of decode_gaps (sequential)."""
+    n = len(xadj) - 1
+    if out is None:
+        out = np.empty(int(xadj[-1]), dtype=np.int32)
+    for u in range(n):
+        p = int(offsets[u])
+        lo, hi = int(xadj[u]), int(xadj[u + 1])
+        prev = -1
+        for e in range(lo, hi):
+            x = 0
+            shift = 0
+            while True:
+                byte = int(data[p])
+                p += 1
+                x |= (byte & 0x7F) << shift
+                if not byte & 0x80:
+                    break
+                shift += 7
+            prev = x - 1 if e == lo else prev + x
+            out[e] = prev
+    return out
+
+
+def encode_v2(xadj, adjncy):
+    """Encode sorted CSR neighborhoods with the v2 codec; returns
+    (bytes u8[total], offsets i64[n+1])."""
+    lib = _load_codec()
+    n = len(xadj) - 1
+    xadj, adjncy = _i64(xadj), _i32(adjncy)
+    offsets = np.zeros(n + 1, dtype=np.int64)
+    out = np.empty(lib.kmp_encode_v2_size(n, xadj, adjncy, offsets),
+                   dtype=np.uint8)
+    lib.kmp_encode_v2(n, xadj, adjncy, offsets, out)
+    return out, offsets
+
+
+def decode_v2(xadj, offsets, data) -> np.ndarray:
+    """Decode a v2 stream; returns adjncy i32[m] in emit order (interval
+    members first, so it pairs 1:1 with the weight stream)."""
+    lib = _load_codec()
+    xadj = _i64(xadj)
+    out = np.empty(int(xadj[-1]), dtype=np.int32)
+    lib.kmp_decode_v2(len(xadj) - 1, xadj, _i64(offsets), _u8(data), out)
+    return out
+
+
+def decode_v2_node(u: int, xadj, offsets, data) -> np.ndarray:
+    """One node's neighborhood from a v2 stream, in emit order."""
+    deg = int(xadj[u + 1] - xadj[u])
+    out = np.empty(deg, dtype=np.int32)
+    if deg:
+        _load_codec().kmp_decode_v2_node(int(u), _i64(xadj), _i64(offsets),
+                                         _u8(data), out)
+    return out
+
+
+def encode_v2_weights(xadj, adjncy, edge_w):
+    """Varint-encode edge weights in the v2 emit order; returns (bytes,
+    woffsets i64[n+1])."""
+    lib = _load_codec()
+    n = len(xadj) - 1
+    xadj, adjncy, edge_w = _i64(xadj), _i32(adjncy), _i64(edge_w)
+    woffsets = np.zeros(n + 1, dtype=np.int64)
+    out = np.empty(
+        lib.kmp_encode_v2_weights_size(n, xadj, adjncy, edge_w, woffsets),
+        dtype=np.uint8,
+    )
+    lib.kmp_encode_v2_weights(n, xadj, adjncy, edge_w, woffsets, out)
+    return out, woffsets
+
+
+def decode_v2_weights(xadj, woffsets, wdata) -> np.ndarray:
+    """Inverse of encode_v2_weights; returns i64[m] in emit order."""
+    lib = _load_codec()
+    xadj = _i64(xadj)
+    out = np.empty(int(xadj[-1]), dtype=np.int64)
+    lib.kmp_decode_v2_weights(len(xadj) - 1, xadj, _i64(woffsets),
+                              _u8(wdata), out)
+    return out

@@ -25,8 +25,10 @@ import torch
 
 from ..context import Context
 from ..dtypes import WMAX
+from ..graphs.compressed import CompressedHostGraph
 from ..graphs.csr import (
     DeviceGraph,
+    device_graph_from_compressed,
     device_graph_from_host,
     host_graph_from_device,
     shape_floors,
@@ -75,14 +77,21 @@ class DeepMultilevelPartitioner(MultilevelScheme):
     def __init__(self, ctx: Context, device: torch.device):
         super().__init__(ctx, device)
         self._spans: List[_BlockSpan] = []
+        self._streamed_input = False
 
-    def partition(self, graph: HostGraph) -> np.ndarray:
+    def partition(self, graph) -> np.ndarray:
+        """Partition a HostGraph, or a CompressedHostGraph, which is
+        uploaded chunk by chunk: its flat CSR never exists on the host."""
         ctx = self.ctx
         input_k = ctx.partition.k
         rng = host_rng(ctx.seed, ctx.seed ^ 0xDEE9)
 
         with self._phase("upload"):
-            dgraph = device_graph_from_host(graph, self.device)
+            self._streamed_input = isinstance(graph, CompressedHostGraph)
+            if self._streamed_input:
+                dgraph = device_graph_from_compressed(graph, self.device)
+            else:
+                dgraph = device_graph_from_host(graph, self.device)
 
         coarsener = Coarsener(ctx, dgraph, graph.n)
         threshold = max(2 * ctx.coarsening.contraction_limit, 2)
@@ -261,10 +270,13 @@ class DeepMultilevelPartitioner(MultilevelScheme):
     def _extend_partition(self, dgraph: DeviceGraph, partition, spans,
                           next_k: int, rng):
         """extend_partition (helper.cc:220,349): bipartition each block
-        that still spans more than one final block."""
+        that still spans more than one final block.  Compressed inputs
+        raise the device path's span limit from 64 to 128: the host path
+        reads the whole level back."""
+        span_limit = 128 if self._streamed_input else 64
         with self._phase("uncoarsening/extension"):
             if (dgraph.m_pad >= DEVICE_EXTEND_MIN_EDGE_SLOTS
-                    and len(spans) <= 64):
+                    and len(spans) <= span_limit):
                 return self._extend_partition_device(
                     dgraph, partition, spans, next_k, rng
                 )

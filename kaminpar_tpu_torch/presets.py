@@ -1,8 +1,8 @@
 """Named presets (counterpart of kaminpar_tpu/presets.py; presets.cc:18-100).
 
 Each preset builds a filled-in Context, field for field the JAX package's.
-The `terapart*` presets run on compressed inputs, which this package does
-not read yet: they raise NotImplementedError naming that later slice.
+The `terapart*` presets switch on compressed-graph mode: `set_graph`
+compresses the input and the deep scheme uploads it chunk by chunk.
 """
 
 from __future__ import annotations
@@ -159,6 +159,30 @@ def create_vcycle_context(restrict_refinement: bool = False) -> Context:
     return ctx
 
 
+def _terapartify(ctx: Context) -> Context:
+    """presets.cc terapartify_context: enable compressed-graph mode."""
+    ctx.compression.enabled = True
+    ctx.preset_name = "terapart"
+    return ctx
+
+
+def create_terapart_context() -> Context:
+    return _terapartify(create_default_context())
+
+
+def create_terapart_strong_context() -> Context:
+    ctx = _terapartify(create_strong_context())
+    ctx.preset_name = "terapart-strong"
+    return ctx
+
+
+def create_terapart_largek_context() -> Context:
+    ctx = _terapartify(create_largek_context())
+    ctx.preset_name = "terapart-largek"
+    ctx.coarsening.clustering.forced_kc_level = True
+    return ctx
+
+
 def create_esa21_smallk_context() -> Context:
     """presets.cc create_esa21_smallk_context: the ESA'21 configuration.
     The reference switches to BUFFERED contraction + single-phase LP; the
@@ -251,19 +275,14 @@ _PRESETS = {
     "diss-strong": create_esa21_strong_context,
     "mtkahypar-kway": create_mtkahypar_kway_context,
     "linear-time-kway": create_linear_time_kway_context,
+    "terapart": create_terapart_context,
+    "terapart-strong": create_terapart_strong_context,
+    "terapart-largek": create_terapart_largek_context,
 }
-
-# presets of the compressed-graph (TeraPart) mode, not ported yet
-_COMPRESSED = ("terapart", "terapart-strong", "terapart-largek")
 
 
 def create_context_by_preset_name(name: str) -> Context:
     """presets.cc:18-73."""
-    if name in _COMPRESSED:
-        raise NotImplementedError(
-            f"preset {name!r} is not ported yet: it comes with the "
-            "compressed and streamed inputs slice"
-        )
     if name not in _PRESETS:
         raise ValueError(
             f"invalid preset name: {name!r} (available: "
@@ -274,4 +293,4 @@ def create_context_by_preset_name(name: str) -> Context:
 
 def get_preset_names() -> Set[str]:
     """Every preset name the JAX package knows (presets.cc:76-99)."""
-    return {*_PRESETS, *_COMPRESSED}
+    return set(_PRESETS)

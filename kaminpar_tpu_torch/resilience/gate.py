@@ -6,6 +6,10 @@ checks every label is in [0, k) and every block is within its cap (the
 unrelaxed (1 + eps) * ceil(n / k) caps for unit node weights and uniform
 blocks, the relaxed caps otherwise), and repairs a violation with the
 exact greedy host balancer.  The verdict is returned as a dict.
+
+Compressed inputs and generator-spec graphs are checked chunk by chunk
+(decoded or regenerated node ranges), so the check never builds the
+flat edge list; only a needed repair decodes the whole graph.
 """
 
 from __future__ import annotations
@@ -14,9 +18,23 @@ from typing import Optional, Tuple
 
 import numpy as np
 
+#: Nodes per decode chunk when recomputing metrics on compressed inputs.
+CHUNK_NODES = 1 << 18
+
+
+def _crossing_weight(partition, v0, v1, deg, adj, ew) -> int:
+    owner = np.repeat(np.arange(v0, v1, dtype=np.int64), deg)
+    crosses = partition[owner] != partition[np.asarray(adj)]
+    if ew is None:
+        return int(np.count_nonzero(crosses))
+    return int(np.asarray(ew, dtype=np.int64)[crosses].sum())
+
 
 def recompute_metrics(graph, partition: np.ndarray, k: int) -> Tuple[int, np.ndarray]:
-    """(cut, block_weights) recomputed on the host."""
+    """(cut, block_weights) recomputed on the host; compressed and
+    generator-spec graphs chunk by chunk."""
+    from ..graphs.compressed import CompressedHostGraph
+
     partition = np.asarray(partition)
     bw = np.zeros(max(k, 1), dtype=np.int64)
     np.add.at(
@@ -24,8 +42,20 @@ def recompute_metrics(graph, partition: np.ndarray, k: int) -> Tuple[int, np.nda
         np.clip(partition, 0, max(k - 1, 0)),
         np.asarray(graph.node_weight_array(), dtype=np.int64),
     )
-    cut2 = 0
-    if graph.m:
+    cut2 = 0  # both directions of every cut edge
+    if hasattr(graph, "iter_rows"):
+        # generator-spec graph (external/chunkstore.StreamedSpecGraph)
+        for v0, v1, adj, ew in graph.iter_rows():
+            deg = np.asarray(graph.xadj[v0 + 1: v1 + 1] - graph.xadj[v0:v1],
+                             dtype=np.int64)
+            cut2 += _crossing_weight(partition, v0, v1, deg, adj, ew)
+    elif isinstance(graph, CompressedHostGraph):
+        for v0 in range(0, graph.n, CHUNK_NODES):
+            v1 = min(graph.n, v0 + CHUNK_NODES)
+            xr, adj, ew = graph.decode_range(v0, v1)
+            deg = np.diff(np.asarray(xr, dtype=np.int64))
+            cut2 += _crossing_weight(partition, v0, v1, deg, adj, ew)
+    elif graph.m:
         xadj = np.asarray(graph.xadj, dtype=np.int64)
         owner = np.repeat(np.arange(graph.n, dtype=np.int64), np.diff(xadj))
         crosses = partition[owner] != partition[graph.adjncy]
@@ -53,8 +83,6 @@ def check_and_repair(
 ) -> Tuple[np.ndarray, dict]:
     """Validate (and, on violation, repair) a finished partition; returns
     (partition, verdict)."""
-    from ..ops.balancer import host_balance
-
     k = int(p_ctx.k)
     n = int(graph.n)
     part = np.asarray(partition)
@@ -86,16 +114,7 @@ def check_and_repair(
             f"balance: total overload {overload} over the {cap_basis} caps"
         )
     if overload and repair:
-        part = host_balance(
-            np.asarray(graph.node_weight_array(), dtype=np.int64),
-            (
-                np.asarray(graph.xadj, dtype=np.int64),
-                np.asarray(graph.adjncy),
-                np.asarray(graph.edge_weight_array(), dtype=np.int64),
-            ),
-            np.ascontiguousarray(np.clip(part, 0, k - 1), dtype=np.int32),
-            caps,
-        )
+        part = _greedy_repair(graph, np.clip(part, 0, k - 1), caps)
         repaired = True
     if repaired:
         part = np.ascontiguousarray(part, dtype=np.int32)
@@ -119,3 +138,28 @@ def check_and_repair(
         "cap_basis": cap_basis,
     }
     return part, verdict
+
+
+def _greedy_repair(graph, part: np.ndarray, caps: np.ndarray) -> np.ndarray:
+    """The exact greedy host balancer over the gate's caps.  Decodes a
+    compressed input (or generates a spec graph) first: repair is the
+    rare path, the check itself streams."""
+    from ..graphs.compressed import CompressedHostGraph
+    from ..ops.balancer import host_balance
+
+    if isinstance(graph, CompressedHostGraph):
+        host = graph.decode()
+    elif hasattr(graph, "to_host_graph"):
+        host = graph.to_host_graph()
+    else:
+        host = graph
+    return host_balance(
+        np.asarray(host.node_weight_array(), dtype=np.int64),
+        (
+            np.asarray(host.xadj, dtype=np.int64),
+            np.asarray(host.adjncy),
+            np.asarray(host.edge_weight_array(), dtype=np.int64),
+        ),
+        np.ascontiguousarray(part, dtype=np.int32),
+        caps,
+    )

@@ -53,6 +53,12 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     assert not bad, bad
 
 
+def test_native_sources_are_copies_of_the_jax_packages():
+    for name in ("codec.cpp", "codec2.cpp", "fm.cpp", "ip.cpp"):
+        assert (PACKAGE / "native" / name).read_bytes() == (
+            REPO / "kaminpar_tpu" / "native" / name).read_bytes(), name
+
+
 def test_kernel_sources_live_in_the_package():
     sources = sorted(p.name for p in (PACKAGE / "csrc").glob("*.cu"))
     assert sources == ["best_from_slots.cu", "dense_ratings.cu", "gather.cu"]
@@ -76,18 +82,14 @@ def test_cpu_is_used_only_when_asked():
 
 
 def test_presets_of_this_slice():
-    """Every preset builds but the compressed-input `terapart*` ones,
-    which raise naming their slice."""
+    """Every preset of the JAX package builds; the `terapart*` ones switch
+    on compressed-graph mode."""
     assert presets.get_preset_names() == set(jax_preset_names())
     assert kp.context_from_preset("default").preset_name == "default"
     for name in sorted(presets.get_preset_names()):
-        if name.startswith("terapart"):
-            with pytest.raises(NotImplementedError,
-                               match="compressed and streamed inputs"):
-                presets.create_context_by_preset_name(name)
-        else:
-            ctx = presets.create_context_by_preset_name(name)
-            assert isinstance(ctx, kp.Context)
+        ctx = presets.create_context_by_preset_name(name)
+        assert isinstance(ctx, kp.Context)
+        assert ctx.compression.enabled == name.startswith("terapart")
     with pytest.raises(ValueError):
         presets.create_context_by_preset_name("no-such-preset")
 

@@ -1,7 +1,7 @@
 """The presets: every preset's context equals the JAX package's field by
 field (compared as nested dicts, the port's fields only; the fields it
-lacks are test_torch_schemes.JAX_ONLY), the `terapart*` presets raise
-naming the compressed-inputs slice, and `strong` (native FM), `fast` and
+lacks are test_torch_schemes.JAX_ONLY), the `terapart*` presets switch
+on compressed-graph mode, and `strong` (native FM), `fast` and
 `noref` partition bitwise as the JAX package does on
 make_rmat(1 << 12, 30_000, seed=3) at k=8.  The other presets' end-to-end
 runs are in test_torch_presets_refiners.py.
@@ -17,8 +17,7 @@ from kaminpar_tpu_torch.context import context_to_dict
 from test_torch_schemes import CASES, run_preset, split_jax_dict
 from torch_threads import one_torch_thread  # noqa: F401
 
-PORTED = sorted(n for n in presets.get_preset_names()
-                if not n.startswith("terapart"))
+PORTED = sorted(presets.get_preset_names())
 
 
 @pytest.mark.parametrize("name", PORTED)
@@ -30,9 +29,18 @@ def test_preset_context_equals_the_jax_presets(name):
 @pytest.mark.parametrize("name",
                          ["terapart", "terapart-largek", "terapart-strong"])
 def test_terapart_presets_raise(name):
-    with pytest.raises(NotImplementedError,
-                       match="compressed and streamed inputs"):
-        presets.create_context_by_preset_name(name)
+    """They used to raise; now each builds compressed-graph mode on the
+    base preset the JAX package uses."""
+    ctx = presets.create_context_by_preset_name(name)
+    assert ctx.compression.enabled and ctx.preset_name == name
+    base = {"terapart": "default", "terapart-largek": "largek",
+            "terapart-strong": "strong"}[name]
+    kept, _ = split_jax_dict(jax_context_to_dict(jax_preset(name)))
+    kept_base, _ = split_jax_dict(jax_context_to_dict(jax_preset(base)))
+    kept["compression"]["enabled"] = False
+    kept["preset_name"] = base
+    kept["coarsening"]["clustering"]["forced_kc_level"] = False
+    assert kept == kept_base
 
 
 @pytest.mark.parametrize("preset", ["fast", "noref", "strong"])

@@ -30,16 +30,15 @@ CASES = {
 }
 
 # fields of the JAX package's context that the port does not have: the
-# subtrees of compressed and streamed inputs, dynamic sessions, debug
-# dumps and checkpoints, the knobs of coarsening modes it does not run,
+# subtrees of dynamic sessions and debug dumps, checkpoints and deadlines,
+# the knobs of coarsening modes it does not run,
 # and knobs that the JAX package accepts for parity with the reference
 # and reads nowhere
 JAX_ONLY = {
-    "compression", "external", "dynamic", "debug",
+    "dynamic", "debug",
     "resilience.checkpoint_dir", "resilience.resume",
     "resilience.time_budget", "resilience.budget_grace",
-    "resilience.hard_deadline_factor", "resilience.memory_budget",
-    "coarsening.clustering.forced_kc_level",
+    "resilience.hard_deadline_factor",
     "coarsening.clustering.num_overlays",
     "coarsening.clustering.lp.large_degree_threshold",
     "coarsening.clustering.lp.max_num_neighbors",
@@ -132,12 +131,19 @@ def test_rb_with_toplevel_refinement_bitwise_equal():
 
 
 def test_external_scheme_raises():
+    """The external scheme runs (it used to raise); it raises when the
+    declared budget cannot hold even the floor chunk's stream state."""
     ctx = kp.context_from_preset("default")
     ctx.partitioning.mode = kp.context.PartitioningMode.EXTERNAL
-    solver = kp.KaMinPar(ctx, device="cpu").set_graph(
-        kp.make_rmat(1 << 8, 900, seed=1))
-    with pytest.raises(NotImplementedError,
-                       match="compressed and streamed inputs"):
+    ctx.coarsening.contraction_limit = 20
+    graph = kp.make_rmat(1 << 8, 900, seed=1)
+    solver = kp.KaMinPar(ctx, device="cpu").set_graph(graph)
+    part = solver.compute_partition(k=2, epsilon=0.03, seed=1)
+    assert part.shape == (graph.n,) and set(np.unique(part)) == {0, 1}
+    assert solver.last_external["streamed_levels"] >= 1
+    assert solver.last_gate["valid"]
+    ctx.resilience.memory_budget = 1000.0
+    with pytest.raises(MemoryError, match="floor stream state"):
         solver.compute_partition(k=2, epsilon=0.03, seed=1)
 
 
