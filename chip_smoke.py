@@ -67,6 +67,29 @@ Phases, each fatal on failure:
      must stream the JAX run's 7 levels.  Each run prints its compression
      ratio and set_graph time, or its per-level stream record (chunks,
      walls, overlap, bytes) and the handoff's phase walls;
+  9a. graph files, overlay and noop coarsening and the warm start at
+     n = 2^14, k=8: make_rmat(1<<14, 120_000, seed=3) is written as METIS,
+     ParHiP and a compressed container, and each load_graph (the
+     container also lazily, memory-mapped) must return the written
+     arrays; overlay and noop coarsening, the `vcycle` warm start from
+     phase 4's partition with max_levels 0 and 2, and `default` on each
+     file's graph run on the CPU and on the card, each pair bitwise equal,
+     `default` from a file giving phase 4's partition;
+  9b. the same at full width, k=16, eps=0.03, seed=1: the large graph
+     written as ParHiP and as a compressed container and read back
+     (`default` on each), the medium graph as METIS, read by the native
+     tokenizer (`default`), overlay coarsening and the warm v-cycle
+     (max_levels 2, from phase 5's partition) on the medium graph, and
+     `external` on the lazily loaded large container, with the stream's
+     peak allocation below the fine CSR's bytes; each cut held to the
+     JAX package's (EXPECTED_FILE_CUTS), the path's kernels launched in
+     each run (K1 and K2 on the large graph and in the warm v-cycle,
+     whose restricted LP takes sort2 in both packages, and the fused K3
+     too on the medium graph's other runs), and the METIS run records
+     telemetry: the run report it writes must validate against the
+     port's schema, its scope walls equal `last_timings` and it must
+     diff clean against itself.  Each load time and wall is
+     printed with the card's name and power limit;
   6. print the per-kernel JSON line, then the final status line.
 
 The rating engine is chosen per level from the graph's density: the large
@@ -83,9 +106,12 @@ unavailable or the package is missing.
 from __future__ import annotations
 
 import json
+import os
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -120,6 +146,21 @@ EXPECTED_STREAM_CUTS = {
 # package streamed under it
 STREAM_BUDGET = 96 << 20
 STREAM_BUDGET_LEVELS = 7
+# graph files, overlay coarsening and the warm start (phase 9b), k=16,
+# eps=0.03, seed=1: the cuts of the JAX package's CPU runs (PERF.md gives
+# the commands; a graph read back from a file is the in-memory graph, so
+# it keeps that graph's pin)
+EXPECTED_FILE_CUTS = {
+    ("large", "default, from ParHiP"): 2_971_596,
+    ("large", "default, from compressed"): 2_971_596,
+    ("large", "external, lazy compressed"): 7_674_977,
+    ("medium", "default, from METIS"): 250_236,
+    ("medium", "overlay"): 250_074,
+    ("medium", "vcycle warm, max_levels 2"): 247_293,
+}
+# the card's name and power limit as nvidia-smi prints them, stamped on
+# every load time and wall of phase 9
+CARD = None
 # seconds since the script started, printed with each partition run
 T_START = time.perf_counter()
 # how device_ms took its times: profiler sessions that recorded device
@@ -245,7 +286,13 @@ def main() -> None:
         capture_output=True, text=True, check=True,
     ).stdout.strip()
     print(smi, flush=True)
+    global CARD
+    CARD = smi
     dev = torch.device("cuda")
+    # the facade prints its banner and RESULT line at the default level
+    from kaminpar_tpu_torch.utils.logger import OutputLevel, set_output_level
+
+    set_output_level(OutputLevel.QUIET)
 
     # -- 2. build
     t0 = time.perf_counter()
@@ -385,6 +432,7 @@ def main() -> None:
         fail("n=2^14: CPU and CUDA partitions differ in "
              f"{int((parts['cpu'] != parts['cuda']).sum())} nodes")
     print(json.dumps({"small_parity": "bitwise-equal"}), flush=True)
+    small_default = parts["cpu"]
 
     # -- 5. the main path; the standalone K3 is off it (the scatter engine
     # runs the fused K3) and is counted only to show so
@@ -475,6 +523,13 @@ def main() -> None:
         core_med, main_parts["medium"][perm_med.new_to_old[: core_med.n]],
         kp, rating, Coarsener, device_graph_from_host, dev, torch)
 
+    # -- 9. graph files, overlay and noop coarsening, the warm start and
+    # the telemetry core
+    check_file_parity(g_small, small_default, kp, torch)
+    slice_runs.update(run_file_paths(graphs, main_parts, kp, counted,
+                                     path_kernels, dev, metrics,
+                                     device_graph_from_host, torch))
+
     for entry in kernels:
         entry["launches"] = launches[entry["name"]]
         entry["path_ms"] = path_ms[entry["name"]]
@@ -560,12 +615,13 @@ def check_stream_parity(g_small, kp, native, torch) -> None:
 
 
 def run_stream_paths(graphs, kp, counted, path_kernels, dev, metrics,
-                     device_graph_from_host, torch) -> dict:
-    """Phase 8b: the compressed and streamed paths at full width.  For an
-    external run the launches and CUDA-event times are split at the
-    in-core handoff ("<cell>/<run>: stream" and ": handoff"), and the
-    stream's peak device allocation is read there.  Returns the runs'
-    (launches, path_ms) for the kernels line."""
+                     device_graph_from_host, torch, runs=None) -> dict:
+    """Phase 8b: the compressed and streamed paths at full width (or the
+    given `runs`: (cell, run, preset, configure, pinned cut, graph to
+    partition)).  For an external run the launches and CUDA-event times
+    are split at the in-core handoff ("<cell>/<run>: stream" and
+    ": handoff"), and the stream's peak device allocation is read there.
+    Returns the runs' (launches, path_ms) for the kernels line."""
     from kaminpar_tpu_torch import _native
     from kaminpar_tpu_torch.external import driver
 
@@ -581,10 +637,12 @@ def run_stream_paths(graphs, kp, counted, path_kernels, dev, metrics,
         return incore(self, handoff)
 
     driver.ExternalPartitioner._incore_partition = hooked
-    runs = {}
+    if runs is None:
+        runs = [(cell, run, *STREAM_RUNS[run], pinned, graphs[cell][0])
+                for (cell, run), pinned in EXPECTED_STREAM_CUTS.items()]
+    results = {}
     try:
-        for (cell, run), pinned in EXPECTED_STREAM_CUTS.items():
-            preset, configure = STREAM_RUNS[run]
+        for cell, run, preset, configure, pinned, graph in runs:
             for fn in counted:
                 fn.launches = 0
             at_handoff.clear()
@@ -592,9 +650,10 @@ def run_stream_paths(graphs, kp, counted, path_kernels, dev, metrics,
             torch.cuda.reset_peak_memory_stats()
             base = torch.cuda.memory_allocated()
             _native.EVENT_LOG = {}
-            _, solver = run_main(cell, graphs[cell][0], kp, counted, dev,
+            _, solver = run_main(cell, graph, kp, counted, dev,
                                  metrics, device_graph_from_host, torch,
-                                 preset, pinned, configure, run)
+                                 preset, pinned, configure, run,
+                                 check_graph=graphs[cell][0])
             torch.cuda.synchronize()
             log, _native.EVENT_LOG = _native.EVENT_LOG, None
             launches = {fn.__name__: fn.launches for fn in counted}
@@ -607,7 +666,7 @@ def run_stream_paths(graphs, kp, counted, path_kernels, dev, metrics,
                     if launches[fn.__name__] <= 0:
                         fail(f"{key}: kernel {fn.__name__} was never "
                              "launched")
-                runs[key] = (launches, run_ms)
+                results[key] = (launches, run_ms)
                 print(json.dumps({
                     "stream_path": key,
                     "compression_ratio": solver.graph().compression_ratio(),
@@ -638,8 +697,8 @@ def run_stream_paths(graphs, kp, counted, path_kernels, dev, metrics,
             if run.endswith("MiB") and levels != STREAM_BUDGET_LEVELS:
                 fail(f"{key}: streamed {levels} levels, the JAX package "
                      f"streamed {STREAM_BUDGET_LEVELS}")
-            runs[f"{key}: stream"] = (stream, stream_ms)
-            runs[f"{key}: handoff"] = (handoff, handoff_ms)
+            results[f"{key}: stream"] = (stream, stream_ms)
+            results[f"{key}: handoff"] = (handoff, handoff_ms)
             print(json.dumps({
                 "stream_path": key, "external": record,
                 "stream_peak_allocated_bytes": peak,
@@ -649,7 +708,277 @@ def run_stream_paths(graphs, kp, counted, path_kernels, dev, metrics,
                 flush=True)
     finally:
         driver.ExternalPartitioner._incore_partition = incore
-    return runs
+    return results
+
+
+def write_graph_files(graph, cgraph, directory, formats) -> dict:
+    """Write `graph` in each format (the compressed container from
+    `cgraph`, ZIP_STORED so that it loads lazily); returns {format:
+    (path, seconds, bytes)}."""
+    from kaminpar_tpu_torch import io as kio
+
+    files = {}
+    for fmt in formats:
+        t0 = time.perf_counter()
+        if fmt == "metis":
+            path = os.path.join(directory, "g.metis")
+            kio.write_metis(graph, path)
+        elif fmt == "parhip":
+            path = os.path.join(directory, "g.parhip")
+            kio.write_parhip(graph, path)
+        else:
+            path = os.path.join(directory, "g.npz")
+            kio.write_compressed(path, cgraph, compress=False)
+        files[fmt] = (path, time.perf_counter() - t0, os.path.getsize(path))
+    return files
+
+
+COMPRESSED_MEMBERS = ("xadj", "offsets", "data", "node_weights",
+                      "edge_weights", "wdata", "woffsets")
+
+
+def check_loaded(what, loaded, graph, cgraph, lazy=False) -> None:
+    """A graph read back from a file holds the written arrays exactly: a
+    HostGraph the in-memory graph's, a compressed container the in-memory
+    compressed graph's (memory-mapped when loaded lazily)."""
+    if hasattr(loaded, "offsets"):
+        ref, names = cgraph, COMPRESSED_MEMBERS
+        if loaded.codec != cgraph.codec:
+            fail(f"{what}: codec {loaded.codec}, written {cgraph.codec}")
+    else:
+        ref, names = graph, ("xadj", "adjncy", "node_weights",
+                             "edge_weights")
+    for name in names:
+        a, b = getattr(loaded, name), getattr(ref, name)
+        if (a is None) != (b is None) or (
+                a is not None and not np.array_equal(np.asarray(a),
+                                                     np.asarray(b))):
+            fail(f"{what}: {name} differs from the written graph")
+    if lazy and not isinstance(loaded.data, np.memmap):
+        fail(f"{what}: the lazy load did not map the container")
+
+
+def load_timed(what, path, kp, graph, cgraph, lazy=False):
+    t0 = time.perf_counter()
+    loaded = kp.load_graph(path, lazy=lazy)
+    load_s = time.perf_counter() - t0
+    check_loaded(what, loaded, graph, cgraph, lazy)
+    print(json.dumps({"graph_file": what, "load_s": load_s,
+                      "bytes": os.path.getsize(path), "card": CARD}),
+          flush=True)
+    return loaded
+
+
+def coarsening(algorithm):
+    """A configure(ctx) for a coarsening algorithm."""
+    def configure(ctx):
+        from kaminpar_tpu_torch.context import CoarseningAlgorithm
+
+        ctx.coarsening.algorithm = CoarseningAlgorithm(algorithm)
+    return configure
+
+
+def warm_start(partition, max_levels):
+    """A prepare(solver) for the v-cycle's warm start."""
+    def prepare(solver):
+        solver.set_initial_partition(partition, max_levels=max_levels)
+    return prepare
+
+
+def check_file_parity(g_small, small_default, kp, torch) -> None:
+    """Phase 9a: the slice at n = 2^14, k=8.  The graph goes through
+    METIS, ParHiP and the compressed container (also loaded lazily), each
+    read back to the written arrays; overlay and noop coarsening, the warm
+    v-cycle from the `default` partition (max_levels 0 and 2) and
+    `default` on each file's graph run on the CPU and on the card, each
+    pair bitwise equal, and `default` from a file gives phase 4's
+    partition."""
+    from kaminpar_tpu_torch.graphs.compressed import compress_host_graph
+
+    tmp = tempfile.mkdtemp(prefix="kp-smoke-")
+    try:
+        cg = compress_host_graph(g_small)
+        files = write_graph_files(g_small, cg, tmp,
+                                  ("metis", "parhip", "compressed"))
+        loaded = {fmt: load_timed(f"small {fmt}", path, kp, g_small, cg)
+                  for fmt, (path, _, _) in files.items()}
+        loaded["lazy compressed"] = load_timed(
+            "small lazy compressed", files["compressed"][0], kp, g_small, cg,
+            lazy=True)
+        runs = {
+            "overlay": ("default", coarsening("overlay"), g_small, None),
+            "noop": ("default", coarsening("noop"), g_small, None),
+            "vcycle warm, max_levels 0": (
+                "vcycle", None, g_small, warm_start(small_default, 0)),
+            "vcycle warm, max_levels 2": (
+                "vcycle", None, g_small, warm_start(small_default, 2)),
+        }
+        for fmt, graph in loaded.items():
+            runs[f"default, from {fmt}"] = ("default", None, graph, None)
+        for run, (preset, configure, graph, prepare) in runs.items():
+            parts = {}
+            for device in ("cpu", "cuda"):
+                solver = kp.KaMinPar(preset, device=device)
+                if configure is not None:
+                    configure(solver.ctx)
+                solver.set_graph(graph)
+                if prepare is not None:
+                    prepare(solver)
+                t0 = time.perf_counter()
+                parts[device] = solver.compute_partition(
+                    k=8, epsilon=0.03, seed=1)
+                print(json.dumps({
+                    "small_run": run, "device": device,
+                    "cut": solver.last_gate["cut_recomputed"],
+                    "wall_s": round(time.perf_counter() - t0, 3),
+                    "card": CARD}), flush=True)
+            if not np.array_equal(parts["cpu"], parts["cuda"]):
+                fail(f"n=2^14 {run}: CPU and CUDA partitions differ in "
+                     f"{int((parts['cpu'] != parts['cuda']).sum())} nodes")
+            if run.startswith("default") and not np.array_equal(
+                    parts["cuda"], small_default):
+                fail(f"n=2^14 {run}: not the in-memory graph's partition")
+            print(json.dumps({"small_parity": run,
+                              "result": "bitwise-equal"}), flush=True)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def check_report(solver, report) -> dict:
+    """The telemetry run's report: valid against the port's schema, its
+    scope walls the solver's `last_timings`, and clean when diffed
+    against itself.  Returns a summary for the log."""
+    from kaminpar_tpu_torch.telemetry.diff import diff_reports
+    from kaminpar_tpu_torch.telemetry.report import validate_report
+
+    errors = validate_report(report)
+    if errors:
+        fail(f"run report: {errors[:5]}")
+    walls = report["scope_tree"]["partitioning"]["children"]
+    for phase, seconds in solver.last_timings.items():
+        node = walls.get(phase.split("/")[0], {})
+        if "/" in phase:
+            node = node.get("children", {}).get(phase.split("/")[1], {})
+        if node.get("elapsed_s") != round(seconds, 6):
+            fail(f"run report: scope {phase} {node.get('elapsed_s')} s, "
+                 f"last_timings {seconds} s")
+    if report["result"]["cut"] != solver.last_gate["cut_recomputed"]:
+        fail("run report: its cut is not the gate's")
+    _, failures = diff_reports(report, report)
+    if failures:
+        fail(f"run report: diffed against itself it fails: {failures}")
+    return {"events": len(report["events"]),
+            "levels": len(report["levels"]),
+            "engines": report["rating"]["engines"],
+            "kernels": report["perf"]["kernels"],
+            "peak_live_bytes": report["perf"]["memory"].get(
+                "peak_live_bytes"),
+            "scopes": sorted(walls)}
+
+
+def run_file_paths(graphs, main_parts, kp, counted, path_kernels, dev,
+                   metrics, device_graph_from_host, torch) -> dict:
+    """Phase 9b: the slice at full width, k=16.  The large graph is
+    written as ParHiP and as a compressed container and read back (the
+    container also lazily), the medium graph as METIS, read by the native
+    tokenizer; `default` runs on each file's graph, overlay coarsening and
+    the warm v-cycle (max_levels 2, from phase 5's partition) on the
+    medium graph, `external` on the lazily loaded large container, each
+    counted from zero and held to EXPECTED_FILE_CUTS; the METIS run
+    records telemetry and its run report is checked.  Returns the runs'
+    (launches, path_ms) for the kernels line."""
+    from kaminpar_tpu_torch import _native, native, telemetry
+    from kaminpar_tpu_torch.graphs.compressed import compress_host_graph
+    from kaminpar_tpu_torch.telemetry.report import write_run_report
+
+    g_large, g_med = graphs["large"][0], graphs["medium"][0]
+    tmp = tempfile.mkdtemp(prefix="kp-smoke-")
+    results = {}
+    try:
+        t0 = time.perf_counter()
+        cg_large = compress_host_graph(g_large)
+        compress_s = time.perf_counter() - t0
+        files = write_graph_files(g_large, cg_large, tmp,
+                                  ("parhip", "compressed"))
+        med_dir = os.path.join(tmp, "medium")
+        os.makedirs(med_dir)
+        files_med = write_graph_files(g_med, None, med_dir, ("metis",))
+        print(json.dumps({
+            "graph_files_written": {
+                f"{cell} {fmt}": {"write_s": w, "bytes": b}
+                for cell, fs in (("large", files), ("medium", files_med))
+                for fmt, (_, w, b) in fs.items()},
+            "large_compress_s": compress_s, "card": CARD}), flush=True)
+        parhip = load_timed("large parhip", files["parhip"][0], kp,
+                            g_large, cg_large)
+        compressed = load_timed("large compressed", files["compressed"][0],
+                                kp, g_large, cg_large)
+        lazy = load_timed("large lazy compressed", files["compressed"][0],
+                          kp, g_large, cg_large, lazy=True)
+        calls = native.parse_metis_body.calls
+        metis = load_timed("medium metis", files_med["metis"][0], kp,
+                           g_med, None)
+        if native.parse_metis_body.calls != calls + 1:
+            fail("medium metis: the native tokenizer did not read the file")
+
+        runs = [
+            ("large", "default, from ParHiP", "default", None, parhip, None),
+            ("large", "default, from compressed", "default", None,
+             compressed, None),
+            ("medium", "default, from METIS", "default", None, metis, None),
+            ("medium", "overlay", "default", coarsening("overlay"), g_med,
+             None),
+            ("medium", "vcycle warm, max_levels 2", "vcycle", None, g_med,
+             warm_start(main_parts["medium"], 2)),
+        ]
+        for cell, run, preset, configure, graph, prepare in runs:
+            for fn in counted:
+                fn.launches = 0
+            traced = run == "default, from METIS"
+            if traced:
+                telemetry.enable()
+            _native.EVENT_LOG = {}
+            _, solver = run_main(
+                cell, graph, kp, counted, dev, metrics,
+                device_graph_from_host, torch, preset,
+                EXPECTED_FILE_CUTS[(cell, run)], configure, run,
+                check_graph=graphs[cell][0], prepare=prepare)
+            torch.cuda.synchronize()
+            summary = None
+            if traced:
+                path = os.path.join(tmp, "run.report.json")
+                write_run_report(path)
+                with open(path) as f:
+                    summary = check_report(solver, json.load(f))
+                telemetry.disable()
+            log, _native.EVENT_LOG = _native.EVENT_LOG, None
+            run_ms = {name: sum(a.elapsed_time(b) for a, b in ev)
+                      for name, ev in log.items()}
+            launches = {fn.__name__: fn.launches for fn in counted}
+            # the large graph's levels take sort2, and so does the
+            # v-cycle's restricted LP (it passes no level statistics to
+            # the engine choice, in both packages): neither reaches K3
+            needed = path_kernels[:2] if (
+                cell == "large" or run.startswith("vcycle")) else path_kernels
+            for fn in needed:
+                if launches[fn.__name__] <= 0:
+                    fail(f"{cell}/{run}: kernel {fn.__name__} was never "
+                         "launched")
+            results[f"{cell}/{run}"] = (launches, run_ms)
+            print(json.dumps({
+                "file_path": f"{cell}/{run}", "launches": launches,
+                "path_ms": run_ms, "report": summary, "card": CARD}),
+                flush=True)
+
+        results.update(run_stream_paths(
+            graphs, kp, counted, path_kernels, dev, metrics,
+            device_graph_from_host, torch,
+            runs=[("large", "external, lazy compressed", *STREAM_RUNS[
+                "external"], EXPECTED_FILE_CUTS[
+                ("large", "external, lazy compressed")], lazy)]))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return results
 
 
 def k3_bound_ms(rows: int, edges: int, num_slots: int) -> tuple:
@@ -929,9 +1258,12 @@ def check_k2_edge_cases(dg, gather, segments, rng, dev, torch) -> None:
 
 
 def run_main(name, graph, kp, counted, dev, metrics, device_graph_from_host,
-             torch, preset, expected_cut, configure=None, run=None):
-    """Partition one graph with `preset` (after `configure(ctx)`) through
-    the public entry point and check the result against `expected_cut`;
+             torch, preset, expected_cut, configure=None, run=None,
+             check_graph=None, prepare=None):
+    """Partition one graph with `preset` (after `configure(ctx)`, and
+    `prepare(solver)` once the graph is set) through the public entry
+    point and check the result against `expected_cut`, recounted on
+    `check_graph` (a HostGraph of the same graph; `graph` by default);
     prints its cut, imbalance, walls and launches and returns the
     partition and the solver."""
     from kaminpar_tpu_torch import _native
@@ -946,11 +1278,14 @@ def run_main(name, graph, kp, counted, dev, metrics, device_graph_from_host,
     t0 = time.perf_counter()
     solver.set_graph(graph)
     set_graph_s = time.perf_counter() - t0
+    if prepare is not None:
+        prepare(solver)
     t0 = time.perf_counter()
     partition = solver.compute_partition(k=K_MAIN, epsilon=0.03, seed=1)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     fm_calls = native.fm_refine.calls - fm_calls
+    graph = graph if check_graph is None else check_graph
     if partition.shape != (graph.n,) or partition.min() < 0 or (
         partition.max() >= K_MAIN
     ):
@@ -993,6 +1328,7 @@ def run_main(name, graph, kp, counted, dev, metrics, device_graph_from_host,
         "levels": solver.last_levels,
         "launches": {fn.__name__: fn.launches - before[fn.__name__]
                      for fn in counted},
+        "card": CARD,
     }), flush=True)
     return partition, solver
 

@@ -6,11 +6,17 @@ hand-written CUDA kernels (csrc/, built with nvcc for sm_90a at first
 use).  Every entry point takes ``device=`` and defaults to ``"cuda"``;
 ``device="cpu"`` runs the kernels' plain torch twins.  For the same input
 and seed the partition is bitwise the JAX package's.
+
+    g = load_graph("graph.metis")   # METIS, ParHiP or a compressed container
+    part = KaMinPar("default").set_graph(g).compute_partition(k=16)
 """
+
+__version__ = "0.1.0"
 
 from .context import Context  # noqa: F401
 from .graphs.factories import make_rgg2d, make_rmat  # noqa: F401
 from .graphs.host import HostGraph  # noqa: F401
+from .io import load_graph  # noqa: F401
 from .kaminpar import KaMinPar, context_from_preset  # noqa: F401
 
 __all__ = [
@@ -18,6 +24,7 @@ __all__ = [
     "HostGraph",
     "KaMinPar",
     "context_from_preset",
+    "load_graph",
     "make_rgg2d",
     "make_rmat",
 ]

@@ -127,6 +127,9 @@ class ClusteringContext:
     # k-contraction boundary (presets.cc create_terapart_largek_context);
     # set for preset parity, read by neither package
     forced_kc_level: bool = False
+    # overlay coarsening (OverlayClusterCoarsener): number of independent
+    # clusterings intersected per level
+    num_overlays: int = 2
 
 
 @dataclass

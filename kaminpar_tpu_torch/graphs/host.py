@@ -148,6 +148,12 @@ def from_edge_list(
 # ---------------------------------------------------------------------------
 
 
+def from_csr(
+    xadj, adjncy, node_weights=None, edge_weights=None
+) -> HostGraph:
+    return HostGraph(xadj, adjncy, node_weights, edge_weights)
+
+
 def validate(graph: HostGraph, undirected: bool = True) -> None:
     """Raise ValueError on malformed CSR; checks the same invariants as the
     reference validator: monotone xadj, in-range neighbors, no self-loops,
@@ -183,6 +189,20 @@ def validate(graph: HostGraph, undirected: bool = True) -> None:
 class NodePermutation:
     old_to_new: np.ndarray
     new_to_old: np.ndarray
+
+
+def degree_bucket_permutation(graph: HostGraph) -> NodePermutation:
+    """Stable sort of nodes into exponentially-spaced degree buckets
+    (permutator.h:233 rearrange_by_degree_buckets): a node's bucket is
+    floor(log2(degree)) + 1, bucket 0 holds the isolated nodes."""
+    deg = graph.degrees()
+    bucket = np.zeros(graph.n, dtype=np.int64)
+    nz = deg > 0
+    bucket[nz] = np.floor(np.log2(deg[nz])).astype(np.int64) + 1
+    new_to_old = np.argsort(bucket, kind="stable").astype(NODE_DTYPE)
+    old_to_new = np.empty_like(new_to_old)
+    old_to_new[new_to_old] = np.arange(graph.n, dtype=NODE_DTYPE)
+    return NodePermutation(old_to_new=old_to_new, new_to_old=new_to_old)
 
 
 def apply_permutation(graph: HostGraph, perm: NodePermutation) -> HostGraph:

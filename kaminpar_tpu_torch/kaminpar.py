@@ -6,6 +6,13 @@ ends with the output gate's check-and-repair.
     part = KaMinPar("default", device="cuda").set_graph(g).compute_partition(
         k=16, epsilon=0.03, seed=1)
 
+`copy_graph` takes raw CSR arrays; `set_initial_partition` warm-starts the
+next v-cycle run from a given partition (one-shot); `set_output_level`
+governs what this instance prints, only while it computes.  Each call
+resets and fills the global timer and, when enabled, the telemetry stream
+(run annotations, the output gate's verdict, the result), from which
+`telemetry.report` builds the run report.
+
 Schemes: deep multilevel, k-way, recursive bipartitioning, v-cycles and
 the out-of-core `external` scheme on one device.  Inputs: a HostGraph, a
 CompressedHostGraph (or a HostGraph under `ctx.compression.enabled`, the
@@ -13,16 +20,17 @@ CompressedHostGraph (or a HostGraph under `ctx.compression.enabled`, the
 scheme a StreamedSpecGraph.  Compressed inputs stay compressed through
 the deep and external schemes (chunked upload, chunked metrics); the
 other schemes decode them once.  The JAX package's deadlines,
-checkpoints, memory governor and telemetry are not part of this package:
-a declared memory budget acts only on the external scheme.
+checkpoints and memory governor are not part of this package: a declared
+memory budget acts only on the external scheme.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Tuple, Union
+from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 
+from . import telemetry
 from .context import Context, PartitioningMode
 from .device import DeviceLike, resolve_device
 from .external.chunkstore import (
@@ -45,6 +53,8 @@ from .graphs.host import (
 )
 from .presets import create_context_by_preset_name
 from .resilience import gate
+from .utils import timer
+from .utils.logger import OutputLevel, log, output_level, set_output_level
 
 
 class KaMinPar:
@@ -70,6 +80,14 @@ class KaMinPar:
         # bytes, overlap), None after a run of another scheme
         self.last_external: Optional[dict] = None
         self._decoded = None
+        self._metrics_memo = None
+        self.output_level = OutputLevel.APPLICATION
+        self._explicit_level: Optional[OutputLevel] = None
+        # the warm start of the next compute_partition call (v-cycle
+        # scheme): a full-k partition and the cycle's coarsening depth;
+        # one-shot, cleared when the call returns
+        self._warm_part: Optional[np.ndarray] = None
+        self._warm_levels: Optional[int] = None
 
     def set_graph(self, graph, validate: bool = False) -> "KaMinPar":
         """A HostGraph, a CompressedHostGraph or a StreamedSpecGraph.  With
@@ -83,6 +101,44 @@ class KaMinPar:
             if self.ctx.compression.enabled:
                 graph = compress_host_graph(graph)
             self._graph = graph
+        return self
+
+    def copy_graph(
+        self,
+        xadj: Sequence[int],
+        adjncy: Sequence[int],
+        vwgt: Optional[Sequence[int]] = None,
+        adjwgt: Optional[Sequence[int]] = None,
+    ) -> "KaMinPar":
+        """CSR ingestion (KaMinPar::copy_graph signature)."""
+        self._graph = HostGraph(
+            xadj=np.asarray(xadj),
+            adjncy=np.asarray(adjncy, dtype=np.int32),
+            node_weights=None if vwgt is None else np.asarray(vwgt),
+            edge_weights=None if adjwgt is None else np.asarray(adjwgt),
+        )
+        return self
+
+    def set_output_level(self, level: OutputLevel) -> "KaMinPar":
+        """Instance-scoped: applied to the package's logger only while
+        compute_partition runs; never called, the global level stands."""
+        self.output_level = OutputLevel(level)
+        self._explicit_level = self.output_level
+        return self
+
+    def set_initial_partition(
+        self, partition, max_levels: Optional[int] = None
+    ) -> "KaMinPar":
+        """Warm-start the next ``compute_partition`` call (v-cycle scheme
+        only): ``partition`` is a valid full-k labeling of the current
+        graph, which the cycles refine in place of the initial deep run;
+        ``max_levels`` bounds each cycle's restricted coarsening (0:
+        refinement only).  One-shot: cleared when the call returns."""
+        self._warm_part = (
+            None if partition is None
+            else np.asarray(partition, dtype=np.int32)
+        )
+        self._warm_levels = max_levels
         return self
 
     def graph(self):
@@ -122,6 +178,61 @@ class KaMinPar:
         self.last_levels = []
         self.last_external = None
 
+        timer.GLOBAL_TIMER.reset()
+        # a run nested in another (an open timer scope) leaves the outer
+        # run's telemetry stream alone
+        owns_stream = timer.GLOBAL_TIMER.idle()
+        if owns_stream:
+            telemetry.reset()
+            telemetry.annotate(
+                preset=ctx.preset_name,
+                seed=int(ctx.seed),
+                k=int(ctx.partition.k),
+                epsilon=float(ctx.partition.epsilon),
+                mode=ctx.partitioning.mode.value,
+                graph={"n": int(graph.n), "m": int(graph.m)},
+            )
+        # the logger is process-global; this instance's level holds only
+        # while it computes
+        prior_level = output_level()
+        try:
+            set_output_level(prior_level if self._explicit_level is None
+                             else self._explicit_level)
+            if self.output_level >= OutputLevel.APPLICATION:
+                self._print_context_summary(graph, ctx)
+            with timer.scoped_timer("partitioning"):
+                partition = self._partition_with_isolated(
+                    graph, streaming_src)
+        finally:
+            set_output_level(prior_level)
+            self._warm_part = None
+            self._warm_levels = None
+
+        if ctx.resilience.output_gate:
+            with timer.scoped_timer("output-gate"):
+                reported = self.result_metrics(graph, partition)["cut"]
+                partition, self.last_gate = gate.check_and_repair(
+                    graph, partition, ctx.partition,
+                    repair=ctx.resilience.repair, reported_cut=reported,
+                )
+            if owns_stream:
+                telemetry.annotate(output_gate=self.last_gate)
+        if self.output_level >= OutputLevel.APPLICATION or (
+            telemetry.enabled() and timer.GLOBAL_TIMER.idle()
+        ):
+            self._print_result(graph, partition)
+        return partition
+
+    def _partition_with_isolated(self, graph, streaming_src: bool):
+        """Isolated-node preprocessing (kaminpar.cc:392-404) around the
+        scheme: the core is partitioned, isolated nodes refill blocks by
+        headroom."""
+        ctx = self.ctx
+        if (self._warm_part is not None
+                and self._warm_part.shape != (graph.n,)):
+            # checked before the core permutation, which would index it
+            raise ValueError(f"warm-start partition shape "
+                             f"{self._warm_part.shape} != ({graph.n},)")
         num_isolated = count_isolated_nodes(graph)
         if (num_isolated and graph.n > num_isolated
                 and isinstance(graph, CompressedHostGraph)):
@@ -132,33 +243,27 @@ class KaMinPar:
             new_to_old = np.concatenate([core_ids, iso_ids])
             old_to_new = np.empty(graph.n, dtype=np.int64)
             old_to_new[new_to_old] = np.arange(graph.n)
-            partition = self._reintegrate_isolated(
+            return self._reintegrate_isolated(
                 graph, core_cg, NodePermutation(old_to_new, new_to_old),
                 part_core,
             )
-        elif num_isolated and graph.n > num_isolated and not streaming_src:
+        if num_isolated and graph.n > num_isolated and not streaming_src:
             # a generator-spec graph keeps its isolated nodes in the
             # stream: the external scheme places them
             core, perm, _ = remove_isolated_nodes(graph)
+            if self._warm_part is not None:
+                # the warm start follows the core permutation: the first
+                # core.n permuted nodes are the ones the core run sees
+                self._warm_part = self._warm_part[perm.new_to_old[: core.n]]
             part_core = self._partition_core(core)
-            partition = self._reintegrate_isolated(graph, core, perm,
-                                                   part_core)
-        elif num_isolated == graph.n and graph.n > 0:
-            partition = _fill_blocks_by_headroom(
+            return self._reintegrate_isolated(graph, core, perm, part_core)
+        if num_isolated == graph.n and graph.n > 0:
+            return _fill_blocks_by_headroom(
                 graph.node_weight_array(),
                 np.zeros(ctx.partition.k, dtype=np.int64),
                 ctx.partition.max_block_weights,
             )
-        else:
-            partition = self._partition_core(graph)
-
-        if ctx.resilience.output_gate:
-            reported = self.result_metrics(graph, partition)["cut"]
-            partition, self.last_gate = gate.check_and_repair(
-                graph, partition, ctx.partition,
-                repair=ctx.resilience.repair, reported_cut=reported,
-            )
-        return partition
+        return self._partition_core(graph)
 
     def _partition_core(self, graph: HostGraph) -> np.ndarray:
         """Scheme dispatch (factories.cc:40-57 create_partitioner)."""
@@ -177,7 +282,12 @@ class KaMinPar:
             )
         else:
             raise ValueError(f"unknown partitioning mode: {mode}")
-        partitioner = cls(self.ctx, self.device)
+        if mode == PartitioningMode.VCYCLE:
+            partitioner = cls(self.ctx, self.device,
+                              initial_partition=self._warm_part,
+                              max_levels=self._warm_levels)
+        else:
+            partitioner = cls(self.ctx, self.device)
         part = partitioner.partition(graph)
         self.last_timings = dict(partitioner.timings)
         self.last_levels = list(partitioner.levels)
@@ -202,7 +312,12 @@ class KaMinPar:
 
     def result_metrics(self, graph, partition) -> dict:
         """cut, imbalance and feasibility of a partition; compressed and
-        generator-spec graphs are swept chunk by chunk."""
+        generator-spec graphs are swept chunk by chunk.  Kept for the last
+        (graph, partition) pair: the gate and the RESULT line ask for the
+        same numbers."""
+        memo = self._metrics_memo
+        if memo is not None and memo[0] is graph and memo[1] is partition:
+            return memo[2]
         p = self.ctx.partition
         if isinstance(graph, CompressedHostGraph):
             m = compressed_partition_metrics(graph, partition, p.k)
@@ -210,13 +325,15 @@ class KaMinPar:
             m = streamed_partition_metrics(graph, partition, p.k)
         else:
             m = host_partition_metrics(graph, partition, p.k)
-        return {
+        result = {
             "cut": int(m["cut"]),
             "imbalance": float(m["imbalance"]),
             "feasible": bool(
                 (m["block_weights"] <= p.max_block_weights).all()
             ),
         }
+        self._metrics_memo = (graph, partition, result)
+        return result
 
     def _validate_parameters(self) -> None:
         p = self.ctx.partition
@@ -244,6 +361,35 @@ class KaMinPar:
         )
         partition[perm.new_to_old] = partition_permuted
         return partition
+
+    def _print_context_summary(self, graph, ctx: Context) -> None:
+        """Startup banner and compact context block (the reference's
+        version banner and context printer)."""
+        from . import __version__
+
+        p = ctx.partition
+        log(f"kaminpar-tpu-torch v{__version__} (preset "
+            f"'{ctx.preset_name}', seed {ctx.seed}, device {self.device})")
+        log(f"  graph: n={graph.n} m={graph.m} "
+            f"total_node_weight={graph.total_node_weight}")
+        log(f"  partition: k={p.k} eps={p.epsilon} "
+            f"mode={ctx.partitioning.mode.value}")
+        log(f"  coarsening: {ctx.coarsening.algorithm.value} "
+            f"(contraction limit {ctx.coarsening.contraction_limit}), "
+            f"refinement: "
+            f"{';'.join(a.value for a in ctx.refinement.algorithms)}")
+
+    def _print_result(self, graph, partition) -> None:
+        """Parseable RESULT line (kaminpar-shm/kaminpar.cc:48) and the
+        run report's `result` annotation."""
+        m = self.result_metrics(graph, partition)
+        if timer.GLOBAL_TIMER.idle():  # nested runs don't own the stream
+            telemetry.annotate(result=m)
+        if self.output_level >= OutputLevel.APPLICATION:
+            log(
+                f"RESULT cut={m['cut']} imbalance={m['imbalance']:.6f} "
+                f"feasible={int(m['feasible'])} k={self.ctx.partition.k}"
+            )
 
 
 def _fill_blocks_by_headroom(

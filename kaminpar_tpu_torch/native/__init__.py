@@ -1,7 +1,8 @@
 """The native host libraries: the multilevel 2-way bipartitioner (ip.cpp),
 the localized batch k-way FM (fm.cpp) and the neighborhood codecs of
-compressed graphs (codec.cpp, the varint gap codec, and codec2.cpp, the
-"v2" codec: intervals, StreamVByte-class residuals, varint weights).
+compressed graphs (codec.cpp, the varint gap codec and the one-pass METIS
+body tokenizer, and codec2.cpp, the "v2" codec: intervals,
+StreamVByte-class residuals, varint weights).
 
 Every source is this package's own byte-for-byte copy of the JAX
 package's.  Each library is compiled by ``g++`` at first use into
@@ -16,11 +17,13 @@ The native paths are the defaults, as in the JAX package.
 ``KAMINPAR_TPU_NO_NATIVE_IP=1`` selects the numpy bipartitioner
 (initial/), and so does a host without ``g++``;
 ``KAMINPAR_TPU_NO_NATIVE_FM=1`` selects the numpy FM (refinement/fm.py).
-``ml_bipartition.calls`` and ``fm_refine.calls`` count the native calls of
-this process.  The gap codec has a numpy twin (``encode_gaps_np``,
-``decode_gaps_np``) that a host without ``g++`` takes; the v2 codec is
-native only, and ``codec="auto"`` means v2 whenever the codec library is
-built or buildable (``codec_enabled``).
+``ml_bipartition.calls``, ``fm_refine.calls`` and ``parse_metis_body.calls``
+count the native calls of this process.  The gap codec has a numpy twin
+(``encode_gaps_np``, ``decode_gaps_np``) that a host without ``g++``
+takes; the v2 codec is native only, and ``codec="auto"`` means v2
+whenever the codec library is built or buildable (``codec_enabled``).
+The METIS tokenizer is used whenever the codec library is: without it
+`io.metis` takes its Python parser, as the JAX package does.
 """
 
 from __future__ import annotations
@@ -197,6 +200,9 @@ def _load_codec() -> ctypes.CDLL:
                  [_I64, _P_I64, _P_I32, _P_I64, _P_I64, _P_U8]),
                 ("kmp_decode_v2_weights", None,
                  [_I64, _P_I64, _P_I64, _P_U8, _P_I64]),
+                ("kmp_parse_metis_body", _I64,
+                 [ctypes.c_char_p, _I64, _I64, ctypes.c_int, ctypes.c_int,
+                  _I64, _P_I64, _P_I32, _P_I64, _P_I64]),
             ):
                 fn = getattr(lib, name)
                 fn.restype, fn.argtypes = ret, args
@@ -290,6 +296,18 @@ def fm_refine(graph: HostGraph, partition: np.ndarray, k: int,
         max(1, int(threads)),
     ))
     _count(fm_refine)
+    if ret == FM_REFUSED:
+        from .. import telemetry
+        from ..utils.logger import log_warning
+
+        # only the sparse engine refuses (16-bit packed tags)
+        reason = "k exceeds the sparse engine's 16-bit tag limit (0xFFFF)"
+        reason += (
+            " (sparse path forced)" if force_sparse
+            else " and the dense (n, k) table is unaffordable"
+        )
+        telemetry.event("fm-refused", n=int(graph.n), k=int(k), reason=reason)
+        log_warning(f"native FM did not run: {reason} (n={graph.n}, k={k})")
     return ret
 
 
@@ -415,6 +433,22 @@ def decode_gaps_np(xadj, offsets, data, out=None) -> np.ndarray:
             prev = x - 1 if e == lo else prev + x
             out[e] = prev
     return out
+
+
+def parse_metis_body(body: bytes, n: int, has_vw: bool, has_ew: bool,
+                     m2: int, xadj, adjncy, vw, ew) -> int:
+    """The one-pass METIS body tokenizer (codec.cpp): fills the given
+    arrays and returns the number of directed edges, or -(node + 1) for
+    the first malformed node line."""
+    ret = int(_load_codec().kmp_parse_metis_body(
+        body, len(body), int(n), int(has_vw), int(has_ew), int(m2),
+        xadj, adjncy, vw, ew,
+    ))
+    _count(parse_metis_body)
+    return ret
+
+
+parse_metis_body.calls = 0
 
 
 def encode_v2(xadj, adjncy):

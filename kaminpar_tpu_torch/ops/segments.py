@@ -314,6 +314,21 @@ def connection_to_label(
     return w_cur.clamp(min=0)
 
 
+def combine_labels(l1: torch.Tensor, l2: torch.Tensor) -> torch.Tensor:
+    """Intersect two clusterings (overlay_cluster_coarsener.cc): nodes
+    share an output label iff they share a label in both inputs.  The
+    output label of a group is its minimum node id, as lp_cluster's."""
+    n = l1.shape[0]
+    order = lex_order(l1, l2)  # stable: node order within a (l1, l2) key
+    a, b = l1[order], l2[order]
+    is_new = (a != _shift_right_fill(a, -1)) | (b != _shift_right_fill(b, -1))
+    gid = _cumsum32(is_new.to(_I32)) - 1
+    leader = segment_min(order.to(_I32), gid, n)
+    out = torch.zeros(n, dtype=_I32, device=l1.device)
+    out[order] = leader[gid.to(_I64)]
+    return out
+
+
 def compact_unique(
     labels: torch.Tensor, n_pad: int
 ) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -1,12 +1,13 @@
 """What the multilevel schemes (deep, k-way, RB, v-cycle) share: the
 context and device, the wall time per phase (`timings`, seconds; a nested
-phase is also counted in its parent), the (n, m) of every level of the
-hierarchy, input first (`levels`), and the host <-> device hand-over of
-partitions and block weights."""
+phase "a/b" is also counted in its parent "a"), the (n, m) of every level
+of the hierarchy, input first (`levels`), and the host <-> device
+hand-over of partitions and block weights.  A phase is a scope of the
+global timer (utils/timer.py) that waits for the device at its exit, so
+`timings`, the timer tree and the telemetry spans read one clock."""
 
 from __future__ import annotations
 
-import time
 from contextlib import contextmanager
 from typing import Dict, List, Optional, Tuple
 
@@ -15,6 +16,7 @@ import torch
 
 from ..context import Context
 from ..dtypes import WMAX
+from ..utils import timer
 
 
 class MultilevelScheme:
@@ -26,15 +28,12 @@ class MultilevelScheme:
 
     @contextmanager
     def _phase(self, name: str):
-        t0 = time.perf_counter()
-        try:
+        """Time phase `name` ("parent/child" for a phase nested in
+        another) as the timer scope of its last component."""
+        with timer.scoped_timer(name.rsplit("/", 1)[-1],
+                                sync=self.device) as scope:
             yield
-        finally:
-            if self.device.type == "cuda":
-                torch.cuda.synchronize(self.device)
-            self.timings[name] = (
-                self.timings.get(name, 0.0) + time.perf_counter() - t0
-            )
+        self.timings[name] = self.timings.get(name, 0.0) + scope.elapsed
 
     def _pad_partition(self, part: np.ndarray, n_pad: int) -> torch.Tensor:
         padded = np.zeros(n_pad, dtype=np.int32)

@@ -4,8 +4,12 @@ level by level, with the reference's max-cluster-weight formula, the
 forced-shrink retries, the hash-engine last resort and the limping-tail
 cutoff.  Under SPARSIFICATION_CLUSTERING (linear-time MGP) a level of more
 than 2^16 edges is clustered on a sparsified copy (ops/sparsify.py) and
-the true graph is contracted.  The JAX package's spill, checkpoint,
-integrity, telemetry and overlay hooks are not part of this package.
+the true graph is contracted; under OVERLAY_CLUSTERING (PASCO) each
+clustering is the intersection of `num_overlays` LP clusterings; NOOP
+clusters as BASIC does, as in the JAX coarsener.  Each level's engine
+choice and accepted level are telemetry events (`rating-engine`,
+`coarsening-level`).  The JAX package's spill, checkpoint, integrity and
+quality hooks are not part of this package.
 """
 
 from __future__ import annotations
@@ -26,13 +30,11 @@ from ..graphs.csr import DeviceGraph
 from ..ops.contraction import CoarseGraph, contract_clustering
 from ..ops.lp import LPConfig, lp_cluster
 from ..ops.rating import select_engine
+from ..ops.segments import combine_labels
 from ..ops.sparsify import sparsify_edges
+from ..utils import timer
+from .. import telemetry
 
-# the coarsening algorithms this package runs
-_ALGORITHMS = (
-    CoarseningAlgorithm.BASIC_CLUSTERING,
-    CoarseningAlgorithm.SPARSIFICATION_CLUSTERING,
-)
 # sparsification clusters levels with more edges than this
 SPARSIFY_MIN_EDGES = 1 << 16
 
@@ -52,11 +54,6 @@ class Coarsener:
     """Cluster coarsener with hierarchy (coarsener.h:20-88 interface)."""
 
     def __init__(self, ctx: Context, graph: DeviceGraph, n: int):
-        if ctx.coarsening.algorithm not in _ALGORITHMS:
-            raise NotImplementedError(
-                f"coarsening algorithm {ctx.coarsening.algorithm.value!r} "
-                "is not ported yet"
-            )
         self.ctx = ctx
         self.levels: List[CoarseningLevel] = []
         self.current = graph
@@ -84,10 +81,15 @@ class Coarsener:
         avg_degree = m / n
         max_degree = int(graph.degrees.max())
         degree_skew = max_degree / max(avg_degree, 1e-9)
-        engine, _ = select_engine(
+        engine, reason = select_engine(
             self._lp_cfg.rating, graph.n_pad, n, m,
             num_slots=self._lp_cfg.num_slots,
             avg_degree=avg_degree, degree_skew=degree_skew,
+        )
+        telemetry.event(
+            "rating-engine", level=self.level, engine=engine, reason=reason,
+            avg_degree=round(avg_degree, 2),
+            degree_skew=round(degree_skew, 2), n=n, m=int(graph.m),
         )
         slots = self._lp_cfg.num_slots
         if (
@@ -129,8 +131,30 @@ class Coarsener:
             )
         lp_cfg = self._level_lp_cfg(cluster_input)
 
-        labels = lp_cluster(cluster_input, mcw, seed, lp_cfg)
-        coarse, c_n, c_m = contract_clustering(self.current, labels)
+        def cluster_once(cap, salt_off):
+            if c_ctx.algorithm == CoarseningAlgorithm.OVERLAY_CLUSTERING:
+                # PASCO: nodes merge only where every clustering agrees
+                labels = None
+                for r in range(max(1, c_ctx.clustering.num_overlays)):
+                    li = lp_cluster(cluster_input, cap,
+                                    seed + 7 * r + 1 + salt_off, lp_cfg)
+                    labels = li if labels is None else combine_labels(
+                        labels, li)
+                return labels
+            return lp_cluster(cluster_input, cap, seed + salt_off, lp_cfg)
+
+        def clustered(cluster):
+            # the contraction reads sizes back and so waits for the LP;
+            # a recorded span waits inside its own scope instead
+            with timer.scoped_timer(
+                "lp-clustering",
+                sync=self.current.device if telemetry.enabled() else None,
+            ):
+                labels = cluster()
+            with timer.scoped_timer("contraction"):
+                return contract_clustering(self.current, labels)
+
+        coarse, c_n, c_m = clustered(lambda: cluster_once(mcw, 0))
 
         # forced-shrink retries: relax the cap and re-cluster while the
         # graph stalls far above the contraction limit
@@ -142,9 +166,8 @@ class Coarsener:
         ):
             retries += 1
             mcw = min(mcw * 2, WMAX)
-            labels = lp_cluster(cluster_input, mcw, seed + retries * 977,
-                                lp_cfg)
-            coarse, c_n, c_m = contract_clustering(self.current, labels)
+            coarse, c_n, c_m = clustered(
+                lambda: cluster_once(mcw, retries * 977))
 
         if (
             c_n >= (1.0 - c_ctx.convergence_threshold) * self.current_n
@@ -153,8 +176,8 @@ class Coarsener:
             # last resort: the hashed-slot engine sees more candidate
             # clusters per node than sort2's top-K
             hash_cfg = replace(self._lp_cfg, rating="hash")
-            labels = lp_cluster(cluster_input, mcw, seed + 3989, hash_cfg)
-            coarse, c_n, c_m = contract_clustering(self.current, labels)
+            coarse, c_n, c_m = clustered(lambda: lp_cluster(
+                cluster_input, mcw, seed + 3989, hash_cfg))
 
         if c_n >= (1.0 - c_ctx.convergence_threshold) * self.current_n:
             return False
@@ -174,6 +197,16 @@ class Coarsener:
         )
         self.current = coarse.graph
         self.current_n = c_n
+        g = coarse.graph
+        telemetry.event(
+            "coarsening-level", level=self.level, n=int(c_n), m=int(c_m),
+            retries=retries, n_pad=g.n_pad, m_pad=g.m_pad,
+            buffer_bytes=sum(
+                t.numel() * t.element_size()
+                for t in (g.row_ptr, g.src, g.dst, g.edge_w, g.node_w,
+                          coarse.cmap)
+            ),
+        )
         return True
 
     def uncoarsen(

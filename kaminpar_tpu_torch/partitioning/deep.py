@@ -50,6 +50,7 @@ from .base import MultilevelScheme
 from .coarsener import Coarsener
 from .rb import bipartition_max_block_weights, split_k
 from .refiner import RefinerPipeline
+from .. import telemetry
 
 
 @dataclass
@@ -150,7 +151,8 @@ class DeepMultilevelPartitioner(MultilevelScheme):
                 )
             refiner = RefinerPipeline(ctx, current_k)
             partition = refiner.enforce_balance_host(
-                dgraph, partition, np.asarray(ctx.partition.max_block_weights)
+                dgraph, partition, np.asarray(ctx.partition.max_block_weights),
+                where="deep",
             )
         return partition[: graph.n].cpu().numpy()
 
@@ -277,12 +279,17 @@ class DeepMultilevelPartitioner(MultilevelScheme):
         with self._phase("uncoarsening/extension"):
             if (dgraph.m_pad >= DEVICE_EXTEND_MIN_EDGE_SLOTS
                     and len(spans) <= span_limit):
-                return self._extend_partition_device(
+                extractor = "device"
+                out = self._extend_partition_device(
                     dgraph, partition, spans, next_k, rng
                 )
-            return self._extend_partition_host(
-                dgraph, partition, spans, next_k, rng
-            )
+            else:
+                extractor = "host"
+                out = self._extend_partition_host(
+                    dgraph, partition, spans, next_k, rng
+                )
+        telemetry.event("extend-partition", k=out[2], extractor=extractor)
+        return out
 
     def _extend_partition_device(self, dgraph, partition, spans, next_k,
                                  rng):

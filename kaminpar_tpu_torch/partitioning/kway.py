@@ -62,6 +62,7 @@ class KWayMultilevelPartitioner(MultilevelScheme):
                     seed=ctx.seed, level=level, num_levels=num_levels,
                 )
             partition = refiner.enforce_balance_host(
-                dgraph, partition, np.asarray(ctx.partition.max_block_weights)
+                dgraph, partition, np.asarray(ctx.partition.max_block_weights),
+                where="kway",
             )
         return partition[: graph.n].cpu().numpy()

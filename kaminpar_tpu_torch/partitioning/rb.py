@@ -19,6 +19,7 @@ from ..context import Context
 from ..graphs.host import HostGraph, extract_block_subgraphs
 from ..initial import InitialMultilevelBipartitioner
 from ..utils.rng import host_rng
+from .. import telemetry
 
 
 def split_k(k: int) -> tuple:
@@ -77,6 +78,10 @@ def recursive_bipartition(
     if k <= 1 or graph.n == 0:
         return part
 
+    telemetry.event(
+        "rb-bisection", n=int(graph.n), k=int(k),
+        first_sub_block=int(first_sub_block),
+    )
     max_weights = bipartition_max_block_weights(
         ctx, first_sub_block, k, graph.total_node_weight
     )

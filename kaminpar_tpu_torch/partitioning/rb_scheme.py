@@ -39,6 +39,7 @@ class RBMultilevelPartitioner(MultilevelScheme):
                 min_bw, seed=ctx.seed,
             )
             refined = refiner.enforce_balance_host(
-                dgraph, refined, np.asarray(ctx.partition.max_block_weights)
+                dgraph, refined, np.asarray(ctx.partition.max_block_weights),
+                where="rb",
             )
         return refined[: graph.n].cpu().numpy()

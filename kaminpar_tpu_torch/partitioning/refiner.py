@@ -22,6 +22,7 @@ from ..ops.lp import LPConfig, lp_refine
 from ..ops.segments import pad_k_bucket
 from ..refinement.fm import fm_refine_host
 from ..refinement.mtkahypar import mtkahypar_refine_host
+from .. import telemetry
 
 
 class RefinerPipeline:
@@ -138,14 +139,18 @@ class RefinerPipeline:
 
     def enforce_balance_host(
         self, graph: DeviceGraph, partition: torch.Tensor,
-        max_block_weights: np.ndarray,
+        max_block_weights: np.ndarray, where: str = "",
     ) -> torch.Tensor:
         """Exact host fallback for the strict balance guarantee when the
-        device balancing rounds stalled."""
+        device balancing rounds stalled; `where` names the calling scheme
+        in the `balancer-host-fallback` event."""
         caps = torch.as_tensor(
             np.asarray(max_block_weights).astype(np.int32), dtype=ACC_DTYPE,
             device=graph.device,
         )
-        if int(metrics.total_overload(graph, partition, caps)) == 0:
+        over = int(metrics.total_overload(graph, partition, caps))
+        if over == 0:
             return partition
+        telemetry.event("balancer-host-fallback", residual_overload=over,
+                        where=where or None)
         return self._host_balance(graph, partition, max_block_weights)

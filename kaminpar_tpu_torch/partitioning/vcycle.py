@@ -6,7 +6,9 @@ clustering restricted to the current blocks (communities), projects the
 partition down the new hierarchy, refines it back up and ends with the
 exact host balance backstop.  The restriction keeps the projected
 partition valid at every level, so a cycle starts from the partition it
-was given.
+was given.  `max_levels` bounds the restricted coarsening of each cycle
+(0: refinement at the input level only).  Each finished cycle is a
+`vcycle` telemetry event with its cut.
 """
 
 from __future__ import annotations
@@ -18,21 +20,26 @@ import numpy as np
 from ..context import PartitioningMode
 from ..dtypes import WMAX
 from ..graphs.csr import device_graph_from_host
-from ..graphs.host import HostGraph
+from ..graphs.host import HostGraph, host_partition_metrics
 from ..ops.contraction import contract_clustering
 from ..ops.lp import LPConfig, lp_cluster
 from .base import MultilevelScheme
 from .deep import DeepMultilevelPartitioner
 from .refiner import RefinerPipeline
+from .. import telemetry
 
 
 class VcycleDeepMultilevelPartitioner(MultilevelScheme):
     def __init__(self, ctx, device,
-                 initial_partition: Optional[np.ndarray] = None):
+                 initial_partition: Optional[np.ndarray] = None,
+                 max_levels: Optional[int] = None):
         """``initial_partition`` (a valid k-way partition of the graph, as
-        a numpy array) warm-starts the cycles in place of the deep run."""
+        a numpy array) warm-starts the cycles in place of the deep run;
+        ``max_levels`` bounds each cycle's restricted coarsening (None:
+        down to the usual threshold)."""
         super().__init__(ctx, device)
         self.initial_partition = initial_partition
+        self.max_levels = max_levels
 
     def partition(self, graph: HostGraph) -> np.ndarray:
         ctx = self.ctx
@@ -59,6 +66,11 @@ class VcycleDeepMultilevelPartitioner(MultilevelScheme):
         for cycle in range(max(len(ctx.partitioning.vcycles), 1)):
             with self._phase(f"vcycle-{cycle}"):
                 part = self._one_vcycle(graph, part, cycle)
+            if telemetry.enabled() and isinstance(graph, HostGraph):
+                telemetry.event(
+                    "vcycle", cycle=cycle,
+                    cut=int(host_partition_metrics(graph, part, k)["cut"]),
+                )
         return part
 
     def _one_vcycle(self, graph: HostGraph, part: np.ndarray,
@@ -79,7 +91,9 @@ class VcycleDeepMultilevelPartitioner(MultilevelScheme):
         current_part = self._pad_partition(part, dgraph.n_pad)
         current_n = graph.n
         threshold = max(2 * ctx.coarsening.contraction_limit, 2)
-        while current_n > threshold:
+        while current_n > threshold and (
+            self.max_levels is None or len(levels) < self.max_levels
+        ):
             max_cw = max(1, ctx.coarsening.max_cluster_weight(
                 current_n, ctx.partition.total_node_weight, ctx.partition
             ))
@@ -109,6 +123,7 @@ class VcycleDeepMultilevelPartitioner(MultilevelScheme):
                 seed=ctx.seed + cycle, level=lvl, num_levels=num_levels,
             )
         current_part = refiner.enforce_balance_host(
-            dgraph, current_part, np.asarray(ctx.partition.max_block_weights)
+            dgraph, current_part, np.asarray(ctx.partition.max_block_weights),
+            where="vcycle",
         )
         return current_part[: graph.n].cpu().numpy()

@@ -5,7 +5,8 @@ recomputes block weights and the cut on the host with its own numpy code,
 checks every label is in [0, k) and every block is within its cap (the
 unrelaxed (1 + eps) * ceil(n / k) caps for unit node weights and uniform
 blocks, the relaxed caps otherwise), and repairs a violation with the
-exact greedy host balancer.  The verdict is returned as a dict.
+exact greedy host balancer.  The verdict is returned as a dict and
+recorded as an `output-gate` telemetry event.
 
 Compressed inputs and generator-spec graphs are checked chunk by chunk
 (decoded or regenerated node ranges), so the check never builds the
@@ -17,6 +18,9 @@ from __future__ import annotations
 from typing import Optional, Tuple
 
 import numpy as np
+
+from .. import telemetry
+from ..utils.logger import log_warning
 
 #: Nodes per decode chunk when recomputing metrics on compressed inputs.
 CHUNK_NODES = 1 << 18
@@ -97,6 +101,7 @@ def check_and_repair(
         violations.append(f"assignment: {num_oor} node(s) outside [0, {k})")
     caps, cap_basis = _strict_caps(graph, p_ctx)
     repaired = False
+    moved = 0
     if num_oor and repair:
         part = part.copy()
         _, bw0 = recompute_metrics(graph, np.where(out_of_range, 0, part), k)
@@ -120,6 +125,7 @@ def check_and_repair(
         part = np.ascontiguousarray(part, dtype=np.int32)
         cut, bw = recompute_metrics(graph, part, k)
         overload = int(np.maximum(bw - caps, 0).sum())
+        moved = int(np.count_nonzero(part != np.asarray(partition)))
         valid = overload == 0 and not ((part < 0) | (part >= k)).any()
     else:
         part = partition
@@ -127,9 +133,11 @@ def check_and_repair(
     perfect = max(1, -(-int(np.asarray(graph.node_weight_array(),
                                        dtype=np.int64).sum()) // max(k, 1)))
     verdict = {
+        "checked": True,
         "valid": bool(valid),
         "violations": violations,
         "repaired": repaired,
+        "repair_moves": moved,
         "cut_reported": None if reported_cut is None else int(reported_cut),
         "cut_recomputed": int(cut),
         "cut_match": cut_match,
@@ -137,6 +145,13 @@ def check_and_repair(
         "max_overload": overload,
         "cap_basis": cap_basis,
     }
+    telemetry.event("output-gate", **verdict)
+    if repaired or violations:
+        log_warning(
+            "output gate: " + "; ".join(violations)
+            + (f" -> repaired ({moved} node(s) moved)" if repaired else
+               " (repair disabled)")
+        )
     return part, verdict
 
 

@@ -53,6 +53,42 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     assert not bad, bad
 
 
+@pytest.mark.parametrize("module", [
+    "io/__init__.py", "io/errors.py", "io/metis.py", "io/parhip.py",
+    "io/partition.py", "io/compressed_binary.py", "telemetry/__init__.py",
+    "telemetry/report.py", "telemetry/diff.py", "utils/timer.py",
+    "utils/logger.py",
+])
+def test_scan_covers_the_file_io_and_telemetry_modules(module):
+    """The AST scan above walks every subpackage, these included; each
+    imports, and imports neither JAX nor the JAX package."""
+    path = PACKAGE / module
+    assert path in set(PACKAGE.rglob("*.py"))
+    roots = {root for root, _ in _imported_roots(path)}
+    assert not roots & set(FORBIDDEN)
+    import importlib
+
+    name = "kaminpar_tpu_torch." + module[:-3].replace("/", ".").removesuffix(
+        ".__init__")
+    importlib.import_module(name)
+
+
+def test_port_schema_is_a_copy_of_the_jax_schema():
+    """The run-report schema differs from the JAX package's only in its
+    comment, the environment stamp and the perf section's kernel table."""
+    import json
+
+    port = json.loads((PACKAGE / "telemetry" / "run_report.schema.json")
+                      .read_text())
+    ref = json.loads((REPO / "kaminpar_tpu" / "telemetry"
+                      / "run_report.schema.json").read_text())
+    for schema in (port, ref):
+        schema.pop("$comment")
+        schema["properties"].pop("environment")
+        schema["properties"]["perf"]["properties"].pop("kernels", None)
+    assert port == ref
+
+
 def test_native_sources_are_copies_of_the_jax_packages():
     for name in ("codec.cpp", "codec2.cpp", "fm.cpp", "ip.cpp"):
         assert (PACKAGE / "native" / name).read_bytes() == (

@@ -31,7 +31,6 @@ CASES = {
 
 # fields of the JAX package's context that the port does not have: the
 # subtrees of dynamic sessions and debug dumps, checkpoints and deadlines,
-# the knobs of coarsening modes it does not run,
 # and knobs that the JAX package accepts for parity with the reference
 # and reads nowhere
 JAX_ONLY = {
@@ -39,7 +38,6 @@ JAX_ONLY = {
     "resilience.checkpoint_dir", "resilience.resume",
     "resilience.time_budget", "resilience.budget_grace",
     "resilience.hard_deadline_factor",
-    "coarsening.clustering.num_overlays",
     "coarsening.clustering.lp.large_degree_threshold",
     "coarsening.clustering.lp.max_num_neighbors",
     "coarsening.clustering.lp.two_hop_threshold",
