@@ -60,8 +60,8 @@ Phases, each fatal on failure:
      medium and the large graph, `external` on the large graph without a
      budget and under a 96 MiB budget, each checked as in phase 5 and its
      cut held against the JAX package's (EXPECTED_STREAM_CUTS; the
-     budgeted pin was taken with the JAX memory governor off, which the
-     port does not have).  K1 must launch inside the stream and K1 and K2
+     budgeted pin was taken with the JAX memory governor off, and the
+     port's budgeted external runs switch theirs off the same way).  K1 must launch inside the stream and K1 and K2
      in the in-core handoff; the stream's peak device allocation must
      stay below the fine graph's device CSR bytes, and the budgeted run
      must stream the JAX run's 7 levels.  Each run prints its compression
@@ -90,6 +90,41 @@ Phases, each fatal on failure:
      port's schema, its scope walls equal `last_timings` and it must
      diff clean against itself.  Each load time and wall is
      printed with the card's name and power limit;
+  10a. the resilience layer at n = 2^14, k=8, on the CPU and on the card,
+     each pair bitwise equal (and with the same resilience events):
+     forced rungs 1-4, an injected OOM (`device-oom:nth=1`), a
+     3,000,000-byte budget, soft stops at `coarsen:1`, `initial` and
+     `uncoarsen:1`, hard stops (SimulatedPreemption after the barrier's
+     checkpoint) with a resume for `default` at `coarsen:1!`, `initial!`
+     and `uncoarsen:1!`, for `mtkahypar-kway`, `vcycle` and `external`
+     at one barrier each, RB's soft stop at `rb-toplevel`,
+     `compressed-stream:nth=1` under `terapart` and
+     `bit-flip:partition:nth=1` recovered by the integrity retry; the
+     rung 1-2, OOM, `default` resume and bit-flip runs give phase 4's
+     partition;
+  10b. the medium graph, k=16: every cell of EXPECTED_RESILIENCE_CUTS
+     (forced rungs 1 and 4, 24 and 16 MiB budgets, the injected OOM, a
+     resume from `uncoarsen:1!`, four soft stops), each cut held to the
+     JAX package's, the "= default" cells to phase 5's partition, each
+     run's rung checked; K1, K2 and the fused K3 launch at rungs 1 and 2
+     (K1 and K2 in the resumed run, which skips level 0's clustering,
+     the only place the fused K3 runs) and K1 in rung 3's stream;
+  10c. the large graph with a checkpoint directory: the bytes and
+     seconds of every checkpoint write and the wall beside phase 5's,
+     then a hard stop at `uncoarsen:1!` and a resume giving phase 5's
+     partition;
+  10d. a genuine CUDA out-of-memory error: the peak allocation of forced
+     rungs 0 and 1 on the large graph (rung 1's partition held to the
+     JAX package's, EXPECTED_LARGE_RUNG1), the allocator capped between them
+     (`torch.cuda.set_per_process_memory_fraction`), `default` with no
+     budget: rung 0 must fail for real, the ladder record it (a
+     `degraded` event, `injected: false`) and finish at a higher rung
+     with that rung's forced partition;
+  10e. the integrity sentinels' cost: the large `default` with
+     KAMINPAR_TPU_INTEGRITY=0 and with the sentinels, the same
+     partition, both walls and `overhead_pct`.
+  Phases 5, 7b, 8b and 9b fail on any degradation, rung, spill,
+     wind-down or integrity-violation event (run_main);
   6. print the per-kernel JSON line, then the final status line.
 
 The rating engine is chosen per level from the graph's density: the large
@@ -105,6 +140,8 @@ unavailable or the package is missing.
 
 from __future__ import annotations
 
+import contextlib
+import hashlib
 import json
 import os
 import shutil
@@ -158,9 +195,37 @@ EXPECTED_FILE_CUTS = {
     ("medium", "overlay"): 250_074,
     ("medium", "vcycle warm, max_levels 2"): 247_293,
 }
+# resilience (phase 10b), medium graph, k=16, eps=0.03, seed=1: the cuts
+# of the JAX package's CPU runs under the same forced rung, budget, fault
+# plan or stop point (PERF.md section 4); True where the run must give
+# phase 5's medium partition bitwise
+EXPECTED_RESILIENCE_CUTS = {
+    "rung 1": (250_236, True),
+    "24 MiB budget": (250_236, True),
+    "device-oom:nth=1": (250_236, True),
+    "resume uncoarsen:1!": (250_236, True),
+    "16 MiB budget": (475_285, False),
+    "rung 4": (255_835, False),
+    "soft stop coarsen:1": (417_872, False),
+    "soft stop initial": (425_329, False),
+    "soft stop uncoarsen:1": (366_511, False),
+    "soft stop coarsen:3": (250_236, True),
+}
+# forced rung 1 (tight pads) on the large graph, k=16, eps=0.03, seed=1:
+# the cut and the sha256 of the int32 partition of the JAX package's CPU
+# run under KAMINPAR_TPU_MEM_RUNG=1 (PERF.md section 4); phase 10d holds
+# the port's forced rung 1 to both, and its capped run to that partition
+EXPECTED_LARGE_RUNG1 = (
+    2_980_700,
+    "6b4603766dec9ffb1161bd36affbb5abd5e3f56963cc24be7ba143712b855ab8",
+)
 # the card's name and power limit as nvidia-smi prints them, stamped on
-# every load time and wall of phase 9
+# every load time and wall of phases 9 and 10
 CARD = None
+# the resilience layer's telemetry events of the run in progress, seen
+# whether or not telemetry records (install_event_spy): a run that neither
+# injects, budgets nor stops must leave none
+RESILIENCE_EVENTS = []
 # seconds since the script started, printed with each partition run
 T_START = time.perf_counter()
 # how device_ms took its times: profiler sessions that recorded device
@@ -293,6 +358,7 @@ def main() -> None:
     from kaminpar_tpu_torch.utils.logger import OutputLevel, set_output_level
 
     set_output_level(OutputLevel.QUIET)
+    install_event_spy()
 
     # -- 2. build
     t0 = time.perf_counter()
@@ -530,6 +596,14 @@ def main() -> None:
                                      path_kernels, dev, metrics,
                                      device_graph_from_host, torch))
 
+    # -- 10. resilience: the memory governor's rungs, checkpoints and
+    # resume, the anytime wind-down, fault injection, a genuine CUDA
+    # out-of-memory error and the integrity sentinels
+    check_resilience_parity(g_small, small_default, kp, torch)
+    slice_runs.update(run_resilience_paths(graphs, main_parts, kp, counted,
+                                           path_kernels, dev, metrics,
+                                           device_graph_from_host, torch))
+
     for entry in kernels:
         entry["launches"] = launches[entry["name"]]
         entry["path_ms"] = path_ms[entry["name"]]
@@ -548,8 +622,12 @@ def main() -> None:
         "count": torch.cuda.device_count()}}), flush=True)
 
 
-def external_ctx(chunk_edges=None, budget=None, contraction_limit=None):
-    """A configure(ctx) for the external scheme."""
+def external_ctx(chunk_edges=None, budget=None, contraction_limit=None,
+                 min_stream_levels=None):
+    """A configure(ctx) for the external scheme.  A budget is the
+    external scheme's own (chunk size and stream depth): its pins were
+    taken with the JAX memory governor off, and `configure.env` switches
+    the port's off the same way."""
     def configure(ctx):
         from kaminpar_tpu_torch.context import PartitioningMode
 
@@ -560,7 +638,26 @@ def external_ctx(chunk_edges=None, budget=None, contraction_limit=None):
             ctx.resilience.memory_budget = float(budget)
         if contraction_limit is not None:
             ctx.coarsening.contraction_limit = contraction_limit
+        if min_stream_levels is not None:
+            ctx.external.min_stream_levels = min_stream_levels
+    configure.env = ({"KAMINPAR_TPU_MEM_GOVERNOR": "0"}
+                     if budget is not None else {})
     return configure
+
+
+@contextlib.contextmanager
+def env_scope(env):
+    """Set the variables of `env` for the block, restoring them after."""
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update({k: str(v) for k, v in env.items()})
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
 
 
 STREAM_RUNS = {
@@ -593,8 +690,9 @@ def check_stream_parity(g_small, kp, native, torch) -> None:
             if configure is not None:
                 configure(solver.ctx)
             t0 = time.perf_counter()
-            parts[device] = solver.set_graph(g_small).compute_partition(
-                k=8, epsilon=0.03, seed=1)
+            with env_scope(getattr(configure, "env", {})):
+                parts[device] = solver.set_graph(g_small).compute_partition(
+                    k=8, epsilon=0.03, seed=1)
             record = solver.last_external or {}
             chunks = [lv["chunks"] for lv in record.get("levels", [])]
             print(json.dumps({"small_run": run, "device": device,
@@ -981,6 +1079,370 @@ def run_file_paths(graphs, main_parts, kp, counted, path_kernels, dev,
     return results
 
 
+def budget_ctx(budget):
+    """A configure(ctx) that declares a device-memory budget (the memory
+    governor's; no scheme change)."""
+    def configure(ctx):
+        ctx.resilience.memory_budget = float(budget)
+    return configure
+
+
+def rb_refined(ctx):
+    from kaminpar_tpu_torch.context import PartitioningMode
+
+    ctx.partitioning.mode = PartitioningMode.RB
+    ctx.partitioning.rb_enable_kway_toplevel_refinement = True
+
+
+def with_checkpoints(directory, resume=False, configure=None):
+    """A configure(ctx) that arms checkpoints in `directory` (after
+    `configure`)."""
+    def wrapped(ctx):
+        if configure is not None:
+            configure(ctx)
+        ctx.resilience.checkpoint_dir = directory
+        ctx.resilience.resume = resume
+    wrapped.env = getattr(configure, "env", {})
+    return wrapped
+
+
+def hard_stop(kp, preset, graph, k, stop, configure, device) -> None:
+    """Run until KAMINPAR_TPU_STOP_AT=`stop` (a hard stop, "...!") raises
+    SimulatedPreemption right after that barrier's checkpoint landed."""
+    from kaminpar_tpu_torch.resilience.checkpoint import SimulatedPreemption
+
+    solver = kp.KaMinPar(preset, device=device)
+    configure(solver.ctx)
+    solver.set_graph(graph)
+    try:
+        with env_scope({"KAMINPAR_TPU_STOP_AT": stop}):
+            solver.compute_partition(k=k, epsilon=0.03, seed=1)
+    except SimulatedPreemption:
+        return
+    fail(f"{preset} on {device}: the hard stop at {stop} never fired")
+
+
+# phase 10a: (run, preset, env, configure, hard stop to resume from)
+SMALL_RESILIENCE_RUNS = [
+    ("rung 1", "default", {"KAMINPAR_TPU_MEM_RUNG": 1}, None, None),
+    ("rung 2", "default", {"KAMINPAR_TPU_MEM_RUNG": 2}, None, None),
+    ("rung 3", "default", {"KAMINPAR_TPU_MEM_RUNG": 3}, None, None),
+    ("rung 4", "default", {"KAMINPAR_TPU_MEM_RUNG": 4}, None, None),
+    ("device-oom:nth=1", "default",
+     {"KAMINPAR_TPU_FAULTS": "device-oom:nth=1"}, None, None),
+    ("3,000,000-byte budget", "default", {}, budget_ctx(3_000_000), None),
+    ("soft stop coarsen:1", "default",
+     {"KAMINPAR_TPU_STOP_AT": "coarsen:1"}, None, None),
+    ("soft stop initial", "default", {"KAMINPAR_TPU_STOP_AT": "initial"},
+     None, None),
+    ("soft stop uncoarsen:1", "default",
+     {"KAMINPAR_TPU_STOP_AT": "uncoarsen:1"}, None, None),
+    ("resume coarsen:1!", "default", {}, None, "coarsen:1!"),
+    ("resume initial!", "default", {}, None, "initial!"),
+    ("resume uncoarsen:1!", "default", {}, None, "uncoarsen:1!"),
+    ("mtkahypar-kway, resume uncoarsen:1!", "mtkahypar-kway", {}, None,
+     "uncoarsen:1!"),
+    ("vcycle, resume vcycle:0!", "vcycle", {}, None, "vcycle:0!"),
+    # contraction limit 160 and two streamed levels: a stream-coarsen:1
+    # barrier exists
+    ("external, resume stream-coarsen:1!", "default", {},
+     external_ctx(chunk_edges=1 << 15, contraction_limit=160,
+                  min_stream_levels=2), "stream-coarsen:1!"),
+    ("rb, soft stop rb-toplevel", "default",
+     {"KAMINPAR_TPU_STOP_AT": "rb-toplevel"}, rb_refined, None),
+    ("terapart, compressed-stream:nth=1", "terapart",
+     {"KAMINPAR_TPU_FAULTS": "compressed-stream:nth=1"}, None, None),
+    ("bit-flip:partition:nth=1", "default",
+     {"KAMINPAR_TPU_FAULTS": "bit-flip:partition:nth=1"}, None, None),
+]
+# the runs of phase 10a that must give phase 4's `default` partition
+SMALL_EQUALS_DEFAULT = ("rung 1", "rung 2", "device-oom:nth=1",
+                        "resume coarsen:1!", "resume initial!",
+                        "resume uncoarsen:1!", "bit-flip:partition:nth=1")
+
+
+def check_resilience_parity(g_small, small_default, kp, torch) -> None:
+    """Phase 10a: the resilience layer at n = 2^14, k=8, on the CPU and
+    on the card, each pair of partitions bitwise equal."""
+    from kaminpar_tpu_torch import resilience
+
+    tmp = tempfile.mkdtemp(prefix="kp-smoke-ckpt-")
+    try:
+        for run, preset, env, configure, stop in SMALL_RESILIENCE_RUNS:
+            parts, summaries = {}, {}
+            for device in ("cpu", "cuda"):
+                resilience.reset()
+                conf = configure or (lambda ctx: None)
+                t0 = time.perf_counter()
+                if stop is not None:
+                    directory = os.path.join(tmp, f"{len(os.listdir(tmp))}")
+                    hard_stop(kp, preset, g_small, 8, stop,
+                              with_checkpoints(directory, False, configure),
+                              device)
+                    conf = with_checkpoints(directory, True, configure)
+                solver = kp.KaMinPar(preset, device=device)
+                conf(solver.ctx)
+                RESILIENCE_EVENTS.clear()
+                with env_scope(dict(getattr(configure, "env", {}), **env)):
+                    parts[device] = solver.set_graph(
+                        g_small).compute_partition(k=8, epsilon=0.03, seed=1)
+                events = sorted({n for n, _ in RESILIENCE_EVENTS})
+                # the barrier's pressure spills read the card's live bytes
+                # (0 on the CPU): they are the one thing the devices may
+                # differ in
+                summaries[device] = (
+                    [n for n in events if n not in (
+                        "memory-pressure", "memory-spill", "memory-reload")],
+                    solver.last_anytime)
+                print(json.dumps({
+                    "small_run": run, "device": device, "events": events,
+                    "anytime": solver.last_anytime,
+                    "rung": resilience.memory.summary().get("rung"),
+                    "wall_s": round(time.perf_counter() - t0, 3)}),
+                    flush=True)
+                if not events:
+                    fail(f"n=2^14 {run} on {device}: no resilience event")
+            if not np.array_equal(parts["cpu"], parts["cuda"]):
+                fail(f"n=2^14 {run}: CPU and CUDA partitions differ in "
+                     f"{int((parts['cpu'] != parts['cuda']).sum())} nodes")
+            if summaries["cpu"] != summaries["cuda"]:
+                fail(f"n=2^14 {run}: CPU and CUDA events differ: "
+                     f"{summaries}")
+            if run in SMALL_EQUALS_DEFAULT and not np.array_equal(
+                    parts["cuda"], small_default):
+                fail(f"n=2^14 {run}: not phase 4's default partition")
+            print(json.dumps({"small_parity": run,
+                              "result": "bitwise-equal"}), flush=True)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def run_resilience_paths(graphs, main_parts, kp, counted, path_kernels, dev,
+                         metrics, device_graph_from_host, torch) -> dict:
+    """Phases 10b-10e at full width, k=16, eps=0.03, seed=1: every cell of
+    EXPECTED_RESILIENCE_CUTS on the medium graph; checkpoint costs and a
+    hard stop with resume on the large graph; a genuine CUDA out-of-memory
+    error recovered by the ladder; the integrity sentinels' cost.  Returns
+    the runs' (launches, path_ms) for the kernels line."""
+    from kaminpar_tpu_torch import _native, resilience
+    from kaminpar_tpu_torch.external import driver
+
+    g_large, g_med = graphs["large"][0], graphs["medium"][0]
+    tmp = tempfile.mkdtemp(prefix="kp-smoke-ckpt-")
+    results = {}
+    at_handoff = {}
+    incore = driver.ExternalPartitioner._incore_partition
+
+    def hooked(self, handoff):
+        at_handoff["launches"] = {fn.__name__: fn.launches for fn in counted}
+        return incore(self, handoff)
+
+    def counted_run(cell, run, graph, expected, configure=None, env=None,
+                    needed=path_kernels, quiet=False, preset="default"):
+        for fn in counted:
+            fn.launches = 0
+        resilience.reset()
+        at_handoff.clear()
+        _native.EVENT_LOG = {}
+        part, solver = run_main(cell, graph, kp, counted, dev, metrics,
+                                device_graph_from_host, torch, preset,
+                                expected, configure, run, quiet=quiet,
+                                env=env)
+        torch.cuda.synchronize()
+        log, _native.EVENT_LOG = _native.EVENT_LOG, None
+        launches = {fn.__name__: fn.launches for fn in counted}
+        run_ms = {name: sum(a.elapsed_time(b) for a, b in ev)
+                  for name, ev in log.items()}
+        for fn in needed:
+            if launches[fn.__name__] <= 0:
+                fail(f"{cell}/{run}: kernel {fn.__name__} was never "
+                     "launched")
+        results[f"{cell}/{run}"] = (launches, run_ms)
+        summary = resilience.memory.summary()
+        print(json.dumps({
+            "resilience_path": f"{cell}/{run}", "launches": launches,
+            "path_ms": run_ms, "rung": summary.get("rung"),
+            "events": sorted({n for n, _ in RESILIENCE_EVENTS}),
+            "anytime": solver.last_anytime, "wall_s": solver.smoke_wall,
+            "peak_allocated_bytes": solver.smoke_peak, "card": CARD}),
+            flush=True)
+        return part, solver
+
+    driver.ExternalPartitioner._incore_partition = hooked
+    try:
+        # -- 10b. the medium graph's resilience cells
+        medium_runs = {
+            "rung 1": ({"KAMINPAR_TPU_MEM_RUNG": 1}, None),
+            "24 MiB budget": ({}, budget_ctx(24 << 20)),
+            "device-oom:nth=1": (
+                {"KAMINPAR_TPU_FAULTS": "device-oom:nth=1"}, None),
+            "resume uncoarsen:1!": ({}, "resume"),
+            "16 MiB budget": ({}, budget_ctx(16 << 20)),
+            "rung 4": ({"KAMINPAR_TPU_MEM_RUNG": 4}, None),
+            "soft stop coarsen:1": (
+                {"KAMINPAR_TPU_STOP_AT": "coarsen:1"}, None),
+            "soft stop initial": ({"KAMINPAR_TPU_STOP_AT": "initial"}, None),
+            "soft stop uncoarsen:1": (
+                {"KAMINPAR_TPU_STOP_AT": "uncoarsen:1"}, None),
+            "soft stop coarsen:3": (
+                {"KAMINPAR_TPU_STOP_AT": "coarsen:3"}, None),
+        }
+        for run, (env, configure) in medium_runs.items():
+            expected, is_default = EXPECTED_RESILIENCE_CUTS[run]
+            needed = path_kernels
+            if run == "rung 4" or (run.startswith("soft stop")
+                                   and run != "soft stop coarsen:3"):
+                # host-only, or wound down before (some of) refinement
+                needed = ()
+            elif run == "16 MiB budget":
+                needed = path_kernels[:1]
+            elif run.startswith("resume"):
+                # the fused K3 runs in level 0's LP clustering only (the
+                # scatter engine), before the first barrier: a resumed
+                # run skips it, in both packages
+                needed = path_kernels[:2]
+            if configure == "resume":
+                directory = os.path.join(tmp, "medium")
+                hard_stop(kp, "default", g_med, K_MAIN, "uncoarsen:1!",
+                          with_checkpoints(directory), "cuda")
+                configure = with_checkpoints(directory, resume=True)
+            part, solver = counted_run("medium", run, g_med, expected,
+                                       configure, env, needed)
+            if is_default and not np.array_equal(part, main_parts["medium"]):
+                fail(f"medium/{run}: not phase 5's medium partition")
+            rung = resilience.memory.summary().get("rung", 0)
+            want_rung = {"rung 1": 1, "24 MiB budget": 2,
+                         "device-oom:nth=1": 1, "16 MiB budget": 3,
+                         "rung 4": 4}.get(run, 0)
+            if rung != want_rung:
+                fail(f"medium/{run}: ended at rung {rung}, not {want_rung}")
+            if run == "16 MiB budget" and at_handoff["launches"][
+                    "gather_i32"] <= 0:
+                fail("medium/16 MiB budget: K1 never launched in rung 3's "
+                     "stream")
+            stopped = run.startswith("soft stop") and run != (
+                "soft stop coarsen:3")
+            if stopped != bool(solver.last_anytime):
+                fail(f"medium/{run}: anytime {solver.last_anytime}")
+
+        # -- 10c. checkpoint writes on the large graph, hard stop, resume
+        directory = os.path.join(tmp, "large")
+        part, solver = counted_run(
+            "large", "checkpointed", g_large, EXPECTED_CUTS["large"],
+            with_checkpoints(directory), needed=path_kernels[:2])
+        writes = [a for n, a in RESILIENCE_EVENTS
+                  if n == "checkpoint" and "bytes" in a]
+        print(json.dumps({
+            "checkpoint_cost": "large", "writes": len(writes),
+            "bytes": sum(a["bytes"] for a in writes),
+            "wall_s": round(sum(a["wall_s"] for a in writes), 4),
+            "per_barrier": [(a["stage"], a["level"], a["bytes"],
+                             a["wall_s"]) for a in writes],
+            "run_wall_s": solver.smoke_wall, "card": CARD}), flush=True)
+        if not np.array_equal(part, main_parts["large"]):
+            fail("large/checkpointed: not phase 5's large partition")
+        shutil.rmtree(directory, ignore_errors=True)
+        hard_stop(kp, "default", g_large, K_MAIN, "uncoarsen:1!",
+                  with_checkpoints(directory), "cuda")
+        part, _ = counted_run("large", "resume uncoarsen:1!", g_large,
+                              EXPECTED_CUTS["large"],
+                              with_checkpoints(directory, resume=True),
+                              needed=path_kernels[:2])
+        if not np.array_equal(part, main_parts["large"]):
+            fail("large/resume uncoarsen:1!: not phase 5's large partition")
+
+        # -- 10d. a genuine CUDA out-of-memory error
+        results.update(check_real_oom(g_large, main_parts, counted_run,
+                                      resilience, torch))
+
+        # -- 10e. the integrity sentinels' cost
+        walls = {}
+        for run, env in (("integrity off", {"KAMINPAR_TPU_INTEGRITY": "0"}),
+                         ("integrity on", {})):
+            part, solver = counted_run("large", run, g_large,
+                                       EXPECTED_CUTS["large"], env=env,
+                                       needed=path_kernels[:2], quiet=True)
+            if not np.array_equal(part, main_parts["large"]):
+                fail(f"large/{run}: not phase 5's large partition")
+            walls[run] = solver.smoke_wall
+        integrity = resilience.integrity.summary()
+        print(json.dumps({
+            "integrity_cost": "large", "walls_s": walls,
+            "checks": integrity["checks"],
+            "sentinel_s": integrity["wall_s"],
+            "overhead_pct": resilience.integrity.overhead_pct(
+                walls["integrity on"]), "card": CARD}), flush=True)
+    finally:
+        driver.ExternalPartitioner._incore_partition = incore
+        shutil.rmtree(tmp, ignore_errors=True)
+    return results
+
+
+def check_real_oom(g_large, main_parts, counted_run, resilience,
+                   torch) -> dict:
+    """Phase 10d: measure the peak allocation of forced rungs 0 and 1 on
+    the large graph, cap the process's allocator between the two, and run
+    `default` with no budget: rung 0 must run out of memory for real (a
+    torch.OutOfMemoryError, not an injected fault), the ladder must
+    record it and finish at a higher rung, with that rung's partition."""
+    results = {}
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    peaks, parts = {}, {}
+    for rung in (0, 1):
+        # rung 1's tight pads give the large graph a cut of its own, the
+        # JAX package's under the same forced rung (EXPECTED_LARGE_RUNG1)
+        run = f"rung {rung}"
+        parts[rung], solver = counted_run(
+            "large", run, g_large,
+            EXPECTED_CUTS["large"] if rung == 0 else EXPECTED_LARGE_RUNG1[0],
+            env={"KAMINPAR_TPU_MEM_RUNG": rung}, needed=(),
+            quiet=rung == 0)
+        peaks[rung] = solver.smoke_peak - base
+    digest = hashlib.sha256(
+        np.ascontiguousarray(parts[1], dtype=np.int32).tobytes()).hexdigest()
+    if digest != EXPECTED_LARGE_RUNG1[1]:
+        fail(f"large: forced rung 1's partition (sha256 {digest}) is not "
+             "the JAX package's")
+    if peaks[1] >= peaks[0]:
+        fail(f"large: rung 1 peaks at {peaks[1]} bytes, rung 0 at "
+             f"{peaks[0]}: tight pads saved nothing")
+    total = torch.cuda.get_device_properties(0).total_memory
+    cap = base + (peaks[0] + peaks[1]) // 2
+    torch.cuda.empty_cache()
+    torch.cuda.set_per_process_memory_fraction(cap / total)
+    try:
+        part, solver = counted_run("large", "capped, no budget", g_large,
+                                   None, needed=())
+    finally:
+        torch.cuda.set_per_process_memory_fraction(1.0)
+        torch.cuda.empty_cache()
+    real = [a for n, a in RESILIENCE_EVENTS
+            if n == "degraded" and a.get("site") == "device-oom"]
+    rung = resilience.memory.summary().get("rung", 0)
+    print(json.dumps({
+        "real_oom": "large", "peak_bytes": peaks, "base_bytes": base,
+        "cap_bytes": cap, "total_bytes": total, "final_rung": rung,
+        "degraded": real, "wall_s": solver.smoke_wall, "card": CARD}),
+        flush=True)
+    if not real or any(a.get("injected") for a in real):
+        fail("large, capped: no genuine CUDA out-of-memory error was "
+             "recovered by the ladder")
+    if "out of memory" not in real[0]["detail"]:
+        fail(f"large, capped: the first rung change was {real[0]}")
+    if rung > 2:
+        fail(f"large, capped: the ladder went on to rung {rung}: the failed "
+             "attempt's memory was not released")
+    if rung not in parts:
+        parts[rung], _ = counted_run(
+            "large", f"rung {rung}", g_large, None,
+            env={"KAMINPAR_TPU_MEM_RUNG": rung}, needed=())
+    if not np.array_equal(part, parts[rung]):
+        fail(f"large, capped: not the partition of forced rung {rung}")
+    return results
+
+
 def k3_bound_ms(rows: int, edges: int, num_slots: int) -> tuple:
     """Bound of the fused K3 over `rows` rows whose spans hold `edges`
     edges: the spans (8 per row), each edge's dst and w (8) and its label
@@ -1259,13 +1721,17 @@ def check_k2_edge_cases(dg, gather, segments, rng, dev, torch) -> None:
 
 def run_main(name, graph, kp, counted, dev, metrics, device_graph_from_host,
              torch, preset, expected_cut, configure=None, run=None,
-             check_graph=None, prepare=None):
+             check_graph=None, prepare=None, quiet=True, env=None):
     """Partition one graph with `preset` (after `configure(ctx)`, and
     `prepare(solver)` once the graph is set) through the public entry
     point and check the result against `expected_cut`, recounted on
-    `check_graph` (a HostGraph of the same graph; `graph` by default);
+    `check_graph` (a HostGraph of the same graph; `graph` by default;
+    `expected_cut` None: a cut with no pin);
     prints its cut, imbalance, walls and launches and returns the
-    partition and the solver."""
+    partition and the solver (with the run's wall, `smoke_wall`, and its
+    peak device allocation, `smoke_peak`).  `env` (and `configure.env`)
+    are set while it computes.  A `quiet` run must leave no degradation,
+    rung, wind-down or integrity-violation event."""
     from kaminpar_tpu_torch import _native
 
     from kaminpar_tpu_torch import native
@@ -1280,10 +1746,19 @@ def run_main(name, graph, kp, counted, dev, metrics, device_graph_from_host,
     set_graph_s = time.perf_counter() - t0
     if prepare is not None:
         prepare(solver)
+    RESILIENCE_EVENTS.clear()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    partition = solver.compute_partition(k=K_MAIN, epsilon=0.03, seed=1)
+    with env_scope(dict(getattr(configure, "env", {}), **(env or {}))):
+        partition = solver.compute_partition(k=K_MAIN, epsilon=0.03, seed=1)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    solver.smoke_wall = wall
+    solver.smoke_peak = torch.cuda.max_memory_allocated()
+    if quiet and loud_events():
+        fail(f"{preset} ({name}, {run}): a run that neither injects, "
+             f"budgets nor stops left events {loud_events()[:3]}")
     fm_calls = native.fm_refine.calls - fm_calls
     graph = graph if check_graph is None else check_graph
     if partition.shape != (graph.n,) or partition.min() < 0 or (
@@ -1311,7 +1786,7 @@ def run_main(name, graph, kp, counted, dev, metrics, device_graph_from_host,
     if cut_dev != cut_host:
         fail(f"main path ({name}): device cut {cut_dev} != host cut "
              f"{cut_host}")
-    if cut_host != expected_cut:
+    if expected_cut is not None and cut_host != expected_cut:
         fail(f"{preset} ({name}): cut {cut_host}, the pinned cut is "
              f"{expected_cut}")
     perfect = -(-graph.total_node_weight // K_MAIN)
@@ -1328,9 +1803,36 @@ def run_main(name, graph, kp, counted, dev, metrics, device_graph_from_host,
         "levels": solver.last_levels,
         "launches": {fn.__name__: fn.launches - before[fn.__name__]
                      for fn in counted},
+        "resilience_events": [n for n, _ in loud_events()],
         "card": CARD,
     }), flush=True)
     return partition, solver
+
+
+def install_event_spy() -> None:
+    """Record the resilience layer's events in RESILIENCE_EVENTS, whether
+    or not telemetry records them."""
+    from kaminpar_tpu_torch import telemetry
+
+    event = telemetry.event
+
+    def spy(name, **attrs):
+        if name in ("degraded", "memory-budget", "memory-pressure",
+                    "memory-spill", "memory-reload", "deadline",
+                    "integrity", "checkpoint", "resume"):
+            RESILIENCE_EVENTS.append((name, dict(attrs)))
+        return event(name, **attrs)
+
+    telemetry.event = spy
+
+
+def loud_events() -> list:
+    """The recorded events a plain run must not leave: a degradation, a
+    rung, a spill, a wind-down or an integrity violation."""
+    return [(n, a) for n, a in RESILIENCE_EVENTS
+            if n in ("degraded", "memory-budget", "memory-pressure",
+                     "memory-spill", "deadline")
+            or (n == "integrity" and a.get("action") != "chaos-corrupt")]
 
 
 if __name__ == "__main__":

@@ -391,17 +391,30 @@ class GraphCompressionContext:
 
 @dataclass
 class ResilienceContext:
-    """Output-gate policy: `output_gate` runs the end-of-pipeline
-    strict-balance validator, `repair` lets it fix balance violations
-    with the greedy host pass.
+    """Degradation and output-gate policy (resilience/).
 
+    `output_gate` runs the end-of-pipeline strict-balance validator,
+    `repair` lets it fix balance violations with the greedy host pass.
+    `checkpoint_dir` enables atomic barrier snapshots there; `resume`
+    re-enters at the recorded stage when the directory holds a matching
+    manifest; `time_budget` (> 0, seconds) arms a monotonic deadline
+    checked at the pipeline barriers, after which the run winds down to a
+    gate-valid partition annotated `anytime: true`; `budget_grace` is the
+    declared wind-down allowance on top of it (reported, not enforced).
+    `hard_deadline_factor` is accepted for parity with the JAX package
+    and inert here: this package has no hard wall-clock watchdog.
     `memory_budget` is a declared device-memory budget in bytes (0 = take
-    KAMINPAR_TPU_HBM_BYTES, unset = none).  This package has no memory
-    governor: a budget acts only on the external scheme, whose chunk size
-    and stream depth it sets (resilience/memory.py)."""
+    KAMINPAR_TPU_HBM_BYTES, unset = none), which the memory governor
+    enforces (resilience/memory.py) and the external scheme sizes its
+    chunks and stream depth against."""
 
     output_gate: bool = True
     repair: bool = True
+    checkpoint_dir: str = ""
+    resume: bool = False
+    time_budget: float = 0.0
+    budget_grace: float = 30.0
+    hard_deadline_factor: float = 10.0
     memory_budget: float = 0.0
 
 

@@ -120,7 +120,11 @@ def device_graph_from_host(
     n_pad: Optional[int] = None,
     m_pad: Optional[int] = None,
 ) -> DeviceGraph:
-    """Upload a HostGraph into the padded device layout."""
+    """Upload a HostGraph into the padded device layout (a `device-oom`
+    fault site: the memory governor's ladder answers it)."""
+    from ..resilience.faults import maybe_inject
+
+    maybe_inject("device-oom")
     n, m = graph.n, graph.m
     n_floor, m_floor = shape_floors()
     n_pad = n_pad if n_pad is not None else pad_size(n + 1, n_floor)
@@ -207,7 +211,12 @@ def device_graph_from_compressed(
     their slices of the device edge arrays, whose pad tail is filled on
     the device.  Peak host memory is the compressed streams + one chunk
     + O(n).  The result equals `device_graph_from_host(cgraph.decode())`
-    bitwise (JAX package: graphs/csr.py device_graph_from_compressed)."""
+    bitwise (JAX package: graphs/csr.py device_graph_from_compressed).
+    A `compressed-stream` fault site: the facade's fallback decodes the
+    graph and partitions the plain CSR."""
+    from ..resilience.faults import maybe_inject
+
+    maybe_inject("compressed-stream")
     dev = resolve_device(device)
     n, m = cgraph.n, cgraph.m
     n_floor, m_floor = shape_floors()

@@ -25,6 +25,7 @@ import numpy as np
 from .. import native
 from ..context import InitialPartitioningContext, InitialPoolContext
 from ..graphs.host import HostGraph
+from ..resilience.policy import with_fallback
 from .coarsening import coarsen_for_bipartition
 from .flat import bfs_bipartition, ggg_bipartition, random_bipartition
 from .fm import fm_bipartition_refine
@@ -141,15 +142,22 @@ class InitialMultilevelBipartitioner:
 
         Runs the native bipartitioner unless it is switched off or there
         is no g++ (native.enabled); the choice is made BEFORE the seed is
-        drawn, so the numpy path sees the same rng stream either way."""
+        drawn, so the numpy path sees the same rng stream either way.  The
+        native call is the `native-ip` fault site: an injected fault (or
+        its open breaker) takes the numpy path below, after the seed was
+        drawn, as in the JAX package; a real build failure raises."""
         if graph.n == 0:
             return np.zeros(0, dtype=np.int8)
         max_block_weights = np.asarray(max_block_weights, dtype=np.int64)
         if native.enabled():
             seed = int(rng.integers(0, 2**62))
-            return native.ml_bipartition(
-                graph, max_block_weights, self.ctx, seed=seed
+            part = with_fallback(
+                lambda: native.ml_bipartition(
+                    graph, max_block_weights, self.ctx, seed=seed),
+                lambda exc: None, site="native-ip",
             )
+            if part is not None:
+                return part
         levels = coarsen_for_bipartition(
             graph,
             self.ctx.coarsening,

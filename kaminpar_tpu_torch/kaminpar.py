@@ -19,9 +19,14 @@ CompressedHostGraph (or a HostGraph under `ctx.compression.enabled`, the
 `terapart*` presets, which `set_graph` compresses), and for the external
 scheme a StreamedSpecGraph.  Compressed inputs stay compressed through
 the deep and external schemes (chunked upload, chunked metrics); the
-other schemes decode them once.  The JAX package's deadlines,
-checkpoints and memory governor are not part of this package: a declared
-memory budget acts only on the external scheme.
+other schemes decode them once (`_decode_cached`).
+
+Resilience, as in the JAX package: each call arms a deadline
+(`ctx.resilience.time_budget`; `last_anytime` says where a wound-down run
+stopped), a checkpoint manager (`checkpoint_dir`, `resume`) and the
+memory governor (`memory_budget`), and runs the core partition under the
+integrity retry ladder around the governor's OOM recovery ladder around
+the `compressed-stream` fallback (resilience/).
 """
 
 from __future__ import annotations
@@ -52,9 +57,21 @@ from .graphs.host import (
     validate as validate_graph,
 )
 from .presets import create_context_by_preset_name
+from .resilience import checkpoint as ckpt_mod
+from .resilience import deadline as deadline_mod
 from .resilience import gate
+from .resilience import integrity as integrity_mod
+from .resilience import memory as mem_mod
+from .resilience.policy import with_fallback
+from .utils import rng as rng_mod
 from .utils import timer
-from .utils.logger import OutputLevel, log, output_level, set_output_level
+from .utils.logger import (
+    OutputLevel,
+    log,
+    log_warning,
+    output_level,
+    set_output_level,
+)
 
 
 class KaMinPar:
@@ -79,7 +96,11 @@ class KaMinPar:
         # the external scheme's record of its last run (levels, chunks,
         # bytes, overlap), None after a run of another scheme
         self.last_external: Optional[dict] = None
+        # where a run that wound down early (deadline, stop request,
+        # signal) stopped; None after a run that did not
+        self.last_anytime: Optional[dict] = None
         self._decoded = None
+        self._core = None
         self._metrics_memo = None
         self.output_level = OutputLevel.APPLICATION
         self._explicit_level: Optional[OutputLevel] = None
@@ -166,6 +187,7 @@ class KaMinPar:
             )
         if seed is not None:
             ctx.seed = int(seed)
+        rng_mod.set_seed(ctx.seed)
         ctx.partition.setup(
             graph, k=k, epsilon=epsilon, max_block_weights=max_block_weights
         )
@@ -192,6 +214,24 @@ class KaMinPar:
                 mode=ctx.partitioning.mode.value,
                 graph={"n": int(graph.n), "m": int(graph.m)},
             )
+        # the run that owns the stream arms the deadline, the checkpoint
+        # manager and the memory governor; a nested run leaves the outer
+        # run's state alone (its barriers are blinded)
+        mgr = None
+        res_ctx = ctx.resilience
+        self.last_anytime = None
+        if owns_stream:
+            ckpt_mod.deactivate()
+            deadline_mod.begin_run(res_ctx.time_budget or None,
+                                   res_ctx.budget_grace,
+                                   res_ctx.hard_deadline_factor)
+            mgr = ckpt_mod.create_manager(res_ctx, self._graph, ctx)
+            if mgr is not None:
+                ckpt_mod.activate(mgr)
+            # the governor prices the whole graph
+            mem_mod.begin_run(graph, ctx, self.device)
+        else:
+            ckpt_mod.suspend()
         # the logger is process-global; this instance's level holds only
         # while it computes
         prior_level = output_level()
@@ -201,12 +241,20 @@ class KaMinPar:
             if self.output_level >= OutputLevel.APPLICATION:
                 self._print_context_summary(graph, ctx)
             with timer.scoped_timer("partitioning"):
-                partition = self._partition_with_isolated(
-                    graph, streaming_src)
+                resumed = (mgr.take_result_resume() if mgr is not None
+                           else None)
+                if resumed is not None and resumed.shape == (graph.n,):
+                    # preempted after the output gate: nothing to compute
+                    partition = resumed
+                else:
+                    partition = self._partition_with_isolated(
+                        graph, streaming_src)
         finally:
             set_output_level(prior_level)
             self._warm_part = None
             self._warm_levels = None
+            if not owns_stream:
+                ckpt_mod.unsuspend()
 
         if ctx.resilience.output_gate:
             with timer.scoped_timer("output-gate"):
@@ -217,11 +265,40 @@ class KaMinPar:
                 )
             if owns_stream:
                 telemetry.annotate(output_gate=self.last_gate)
+        if owns_stream:
+            self._finish_resilience(mgr, partition)
         if self.output_level >= OutputLevel.APPLICATION or (
             telemetry.enabled() and timer.GLOBAL_TIMER.idle()
         ):
             self._print_result(graph, partition)
         return partition
+
+    def _finish_resilience(self, mgr, partition) -> None:
+        """The final `result` barrier (a preemption after the gate resumes
+        at once), then the run report's anytime, checkpoint and
+        memory-budget sections; releases the run's checkpoint manager."""
+        if mgr is not None and mgr.enabled:
+            ckpt_mod.barrier(
+                "result", scheme="facade",
+                payload=lambda: {"state": {
+                    "partition": np.asarray(partition, dtype=np.int32),
+                }},
+            )
+        if deadline_mod.triggered():
+            self.last_anytime = deadline_mod.state()
+            telemetry.annotate(anytime=self.last_anytime)
+            log_warning(
+                "ANYTIME result: wound down at stage "
+                f"'{self.last_anytime.get('stage') or 'start'}' "
+                f"({self.last_anytime.get('reason')}); partition is "
+                "gate-validated but lower-effort"
+            )
+        if mgr is not None:
+            telemetry.annotate(checkpoint=mgr.summary())
+        mem_summary = mem_mod.summary()
+        if mem_summary.get("enabled"):
+            telemetry.annotate(memory_budget=mem_summary)
+        ckpt_mod.deactivate()
 
     def _partition_with_isolated(self, graph, streaming_src: bool):
         """Isolated-node preprocessing (kaminpar.cc:392-404) around the
@@ -237,9 +314,12 @@ class KaMinPar:
         if (num_isolated and graph.n > num_isolated
                 and isinstance(graph, CompressedHostGraph)):
             # the core is extracted compressed to compressed (chunked
-            # re-encode); isolated nodes refill blocks by headroom
-            core_cg, core_ids, iso_ids = extract_core_compressed(graph)
-            part_core = self._partition_core(core_cg)
+            # re-encode, kept for the next call on this graph); isolated
+            # nodes refill blocks by headroom
+            if self._core is None or self._core[0] is not graph:
+                self._core = (graph, extract_core_compressed(graph))
+            core_cg, core_ids, iso_ids = self._core[1]
+            part_core = self._partition_core_governed(core_cg)
             new_to_old = np.concatenate([core_ids, iso_ids])
             old_to_new = np.empty(graph.n, dtype=np.int64)
             old_to_new[new_to_old] = np.arange(graph.n)
@@ -255,7 +335,7 @@ class KaMinPar:
                 # the warm start follows the core permutation: the first
                 # core.n permuted nodes are the ones the core run sees
                 self._warm_part = self._warm_part[perm.new_to_old[: core.n]]
-            part_core = self._partition_core(core)
+            part_core = self._partition_core_governed(core)
             return self._reintegrate_isolated(graph, core, perm, part_core)
         if num_isolated == graph.n and graph.n > 0:
             return _fill_blocks_by_headroom(
@@ -263,7 +343,33 @@ class KaMinPar:
                 np.zeros(ctx.partition.k, dtype=np.int64),
                 ctx.partition.max_block_weights,
             )
-        return self._partition_core(graph)
+        return self._partition_core_governed(graph)
+
+    def _partition_core_governed(self, graph) -> np.ndarray:
+        """The core partition under the integrity retry ladder (one
+        re-execution from the last clean barrier after a sentinel fired)
+        around the memory governor's OOM ladder."""
+        ctx = self.ctx
+        return integrity_mod.run_with_retry(
+            lambda: mem_mod.run_ladder(
+                lambda: self._partition_core_resilient(graph),
+                graph, ctx, facade=self,
+            ),
+            where="partition-core",
+        )
+
+    def _partition_core_resilient(self, graph) -> np.ndarray:
+        """The scheme under the `compressed-stream` contract: when the
+        chunked upload of a compressed graph fails (device OOM, an
+        injected fault), the graph is decoded (once, `_decode_cached`) and
+        the plain CSR partitioned."""
+        if not isinstance(graph, CompressedHostGraph):
+            return self._partition_core(graph)
+        return with_fallback(
+            lambda: self._partition_core(graph),
+            lambda exc: self._partition_core(self._decode_cached(graph)),
+            site="compressed-stream",
+        )
 
     def _partition_core(self, graph: HostGraph) -> np.ndarray:
         """Scheme dispatch (factories.cc:40-57 create_partitioner)."""
@@ -305,7 +411,8 @@ class KaMinPar:
 
     def _decode_cached(self, cgraph):
         """The full decode of a compressed input, kept for repeated
-        compute_partition calls on it."""
+        compute_partition calls (seed and k sweeps) and shared by the
+        non-deep schemes and the `compressed-stream` fallback."""
         if self._decoded is None or self._decoded[0] is not cgraph:
             self._decoded = (cgraph, cgraph.decode())
         return self._decoded[1]

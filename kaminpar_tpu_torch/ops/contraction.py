@@ -54,7 +54,11 @@ def _fit(x: torch.Tensor, size: int, fill) -> torch.Tensor:
 def contract_clustering(
     graph: DeviceGraph, labels: torch.Tensor
 ) -> Tuple[CoarseGraph, int, int]:
-    """Contract `labels` over `graph`; returns (CoarseGraph, c_n, c_m)."""
+    """Contract `labels` over `graph`; returns (CoarseGraph, c_n, c_m).
+    A `device-oom` fault site (the largest fresh buffers of a level)."""
+    from ..resilience.faults import maybe_inject
+
+    maybe_inject("device-oom")
     n_pad = graph.n_pad
     dev = graph.device
     node_ids = graph.node_ids()

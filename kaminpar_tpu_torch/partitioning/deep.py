@@ -8,10 +8,14 @@ extended by bipartitioning each block's induced subgraph.
 Block bookkeeping: current block b spans the final blocks [first(b),
 first(b) + count(b)); an extension splits a block into ceil/floor halves,
 preserving block order, so at k == input k the block ids are the final
-ids.  The JAX package's checkpoint, quality and debug hooks are not part
-of this package.  Wall times per phase land in `timings` (the extension
-time is also counted inside "uncoarsening"), and the (n, m) of every
-level of the hierarchy, input first, in `levels`.
+ids.  Every coarsening level, the initial partition and every
+uncoarsening level is a checkpoint barrier (resilience/checkpoint.py): it
+offers the level or the partition to an armed manager, honors the
+deadline's wind-down and is where a resume re-enters.  The JAX package's
+quality and debug hooks are not part of this package.  Wall times per
+phase land in `timings` (the extension time is also counted inside
+"uncoarsening"), and the (n, m) of every level of the hierarchy, input
+first, in `levels`.
 """
 
 from __future__ import annotations
@@ -45,9 +49,11 @@ from ..ops.subgraphs import (
     scatter_block_bipartition,
     slice_block,
 )
+from ..resilience import checkpoint as ckpt
+from ..resilience import memory as memory_mod
 from ..utils.rng import host_rng
 from .base import MultilevelScheme
-from .coarsener import Coarsener
+from .coarsener import Coarsener, newest_level_snapshot, restore_levels
 from .rb import bipartition_max_block_weights, split_k
 from .refiner import RefinerPipeline
 from .. import telemetry
@@ -86,6 +92,9 @@ class DeepMultilevelPartitioner(MultilevelScheme):
         ctx = self.ctx
         input_k = ctx.partition.k
         rng = host_rng(ctx.seed, ctx.seed ^ 0xDEE9)
+        # refuse an upload the governor's rung cannot fit, before a byte
+        # lands on the device (the facade's ladder moves on)
+        memory_mod.preflight(graph.n, graph.m, input_k, where="deep")
 
         with self._phase("upload"):
             self._streamed_input = isinstance(graph, CompressedHostGraph)
@@ -96,51 +105,101 @@ class DeepMultilevelPartitioner(MultilevelScheme):
 
         coarsener = Coarsener(ctx, dgraph, graph.n)
         threshold = max(2 * ctx.coarsening.contraction_limit, 2)
-        with self._phase("coarsening"):
-            while coarsener.current_n > threshold:
-                if not coarsener.coarsen():
-                    break
+
+        # resume: rebuild the recorded hierarchy and state, re-enter at
+        # the recorded stage
+        resume = ckpt.take_resume("deep")
+        stage = None
+        partition = None
+        spans: List[_BlockSpan] = []
+        current_k = 0
+        num_levels = None
+        if resume is not None:
+            stage, partition, spans, current_k, num_levels, rng = (
+                self._restore_from_checkpoint(resume, coarsener, dgraph, rng)
+            )
+
+        if stage is None or stage == "coarsen":
+            with self._phase("coarsening"):
+                while coarsener.current_n > threshold:
+                    if not coarsener.coarsen():
+                        break
+                    if not ckpt.barrier(
+                        "coarsen", level=coarsener.level, scheme="deep",
+                        payload=lambda: self._ckpt_level_payload(coarsener),
+                        keep=[f"level-{j}"
+                              for j in range(coarsener.level - 1)],
+                        meta=self._ckpt_meta(current_k, num_levels, rng),
+                    ):
+                        break  # wind-down: IP and projection stay
         self.levels = [(graph.n, graph.m)] + [
             (lvl.coarse_n, lvl.coarse_m) for lvl in coarsener.levels
         ]
 
-        with self._phase("initial-partitioning"):
-            coarsest_host = host_graph_from_device(coarsener.current)
-            k0, k1 = split_k(input_k)
-            spans = (
-                [_BlockSpan(0, k0), _BlockSpan(k0, k1)]
-                if input_k > 1 else [_BlockSpan(0, 1)]
-            )
-            if input_k == 1:
-                part_host = np.zeros(coarsest_host.n, dtype=np.int32)
-            else:
-                max_w = bipartition_max_block_weights(
-                    ctx, 0, input_k, coarsest_host.total_node_weight
+        if stage in (None, "coarsen"):
+            with self._phase("initial-partitioning"):
+                coarsest_host = host_graph_from_device(coarsener.current)
+                k0, k1 = split_k(input_k)
+                spans = (
+                    [_BlockSpan(0, k0), _BlockSpan(k0, k1)]
+                    if input_k > 1 else [_BlockSpan(0, 1)]
                 )
-                part_host = (
-                    InitialMultilevelBipartitioner(ctx.initial_partitioning)
-                    .bipartition(coarsest_host, max_w, rng)
-                    .astype(np.int32)
+                if input_k == 1:
+                    part_host = np.zeros(coarsest_host.n, dtype=np.int32)
+                else:
+                    max_w = bipartition_max_block_weights(
+                        ctx, 0, input_k, coarsest_host.total_node_weight
+                    )
+                    part_host = (
+                        InitialMultilevelBipartitioner(
+                            ctx.initial_partitioning)
+                        .bipartition(coarsest_host, max_w, rng)
+                        .astype(np.int32)
+                    )
+                current_k = len(spans)
+                self._spans = spans
+                partition = self._pad_partition(
+                    part_host, coarsener.current.n_pad
                 )
-            current_k = len(spans)
-            self._spans = spans
-            partition = self._pad_partition(
-                part_host, coarsener.current.n_pad
+            num_levels = coarsener.level + 1
+            ckpt.barrier(
+                "initial", level=coarsener.level, scheme="deep",
+                payload=lambda: self._ckpt_state_payload(
+                    partition, coarsener.current_n, spans),
+                keep=[f"level-{j}" for j in range(coarsener.level)],
+                meta=self._ckpt_meta(current_k, num_levels, rng),
             )
-        num_levels = coarsener.level + 1
+        if num_levels is None:
+            num_levels = coarsener.level + 1
 
         with self._phase("uncoarsening"):
             level = coarsener.level
-            partition, spans, current_k = self._extend_and_refine(
-                coarsener.current, coarsener.current_n, partition, spans,
-                current_k, rng, level, num_levels,
-            )
+            if stage != "uncoarsen":
+                partition, spans, current_k = self._extend_and_refine(
+                    coarsener.current, coarsener.current_n, partition,
+                    spans, current_k, rng, level, num_levels,
+                )
+                ckpt.barrier(
+                    "uncoarsen", level=level, scheme="deep",
+                    payload=lambda: self._ckpt_state_payload(
+                        partition, coarsener.current_n, spans),
+                    keep=[f"level-{j}" for j in range(level)],
+                    meta=self._ckpt_meta(current_k, num_levels, rng),
+                )
             while not coarsener.empty():
                 fine_graph, partition = coarsener.uncoarsen(partition)
                 level -= 1
                 partition, spans, current_k = self._extend_and_refine(
                     fine_graph, coarsener.current_n, partition, spans,
                     current_k, rng, level, num_levels,
+                )
+                part_now, spans_now = partition, spans
+                ckpt.barrier(
+                    "uncoarsen", level=level, scheme="deep",
+                    payload=lambda: self._ckpt_state_payload(
+                        part_now, coarsener.current_n, spans_now),
+                    keep=[f"level-{j}" for j in range(level)],
+                    meta=self._ckpt_meta(current_k, num_levels, rng),
                 )
             while current_k < input_k:
                 partition, spans, current_k = self._extend_partition(
@@ -155,6 +214,59 @@ class DeepMultilevelPartitioner(MultilevelScheme):
                 where="deep",
             )
         return partition[: graph.n].cpu().numpy()
+
+    # -- checkpoint payloads and restore --------------------------------
+
+    def _ckpt_level_payload(self, coarsener: Coarsener) -> dict:
+        """The just-contracted level as a named snapshot."""
+        return {f"level-{coarsener.level - 1}":
+                newest_level_snapshot(coarsener)}
+
+    def _ckpt_state_payload(self, partition, n: int, spans) -> dict:
+        return {"state": {
+            "partition": partition[:n].cpu().numpy().astype(np.int32),
+            "spans": np.asarray([[s.first, s.count] for s in spans],
+                                dtype=np.int64),
+        }}
+
+    def _ckpt_meta(self, current_k, num_levels, rng) -> dict:
+        """Driver state beside the arrays, the host RNG's state included:
+        a resumed extension must draw what the uninterrupted run drew."""
+        return {
+            "current_k": int(current_k),
+            "num_levels": None if num_levels is None else int(num_levels),
+            "rng_state": rng.bit_generator.state,
+        }
+
+    def _restore_from_checkpoint(self, resume, coarsener, dgraph, rng):
+        """Rebuild the hierarchy (coarsener.restore_levels) and the driver
+        state of the checkpointed barrier: partition, block spans,
+        current_k and the host RNG stream."""
+        arrays = resume["arrays"]
+        meta = resume.get("meta", {})
+        stage = resume["stage"]
+        num_restored = restore_levels(coarsener, dgraph, arrays)
+        partition = None
+        spans: List[_BlockSpan] = []
+        current_k = 0
+        if "state" in arrays:
+            st = arrays["state"]
+            partition = self._pad_partition(
+                np.asarray(st["partition"], dtype=np.int32),
+                coarsener.current.n_pad,
+            )
+            spans = [_BlockSpan(int(f), int(c))
+                     for f, c in np.asarray(st["spans"]).tolist()]
+            current_k = int(meta.get("current_k", len(spans)))
+            self._spans = spans
+        if meta.get("rng_state"):
+            rng = np.random.default_rng(0)
+            rng.bit_generator.state = meta["rng_state"]
+        telemetry.event("resume", scheme="deep", stage=stage,
+                        level=resume.get("level"),
+                        levels_restored=num_restored)
+        return (stage, partition, spans, current_k,
+                meta.get("num_levels"), rng)
 
     # ------------------------------------------------------------------
     def _extend_and_refine(

@@ -4,7 +4,9 @@ two, recurse per block, each bisection a full multilevel bipartition on
 the host (partitioning/rb.py).  With
 ctx.partitioning.rb_enable_kway_toplevel_refinement the k-way partition is
 then refined on the device with the context's refiner pipeline and
-balanced by the exact host backstop, as in the JAX package.
+balanced by the exact host backstop, as in the JAX package; the
+`rb-toplevel` barrier before it only gates that refinement on the
+deadline.
 """
 
 from __future__ import annotations
@@ -13,6 +15,7 @@ import numpy as np
 
 from ..graphs.csr import device_graph_from_host
 from ..graphs.host import HostGraph
+from ..resilience import checkpoint as ckpt
 from ..utils.rng import host_rng
 from .base import MultilevelScheme
 from .rb import recursive_bipartition
@@ -27,7 +30,12 @@ class RBMultilevelPartitioner(MultilevelScheme):
         self.levels = [(graph.n, graph.m)]
         with self._phase("recursive-bipartitioning"):
             part = recursive_bipartition(graph, k, ctx, rng)
-        if not ctx.partitioning.rb_enable_kway_toplevel_refinement:
+        # a barrier without a payload (the bisection tree has no
+        # hierarchy to snapshot): the deadline's wind-down skips the
+        # optional top-level refinement
+        proceed = ckpt.barrier("rb-toplevel", scheme="rb")
+        if not (proceed
+                and ctx.partitioning.rb_enable_kway_toplevel_refinement):
             return part
 
         with self._phase("toplevel-refinement"):

@@ -8,7 +8,8 @@ exact host balance backstop.  The restriction keeps the projected
 partition valid at every level, so a cycle starts from the partition it
 was given.  `max_levels` bounds the restricted coarsening of each cycle
 (0: refinement at the input level only).  Each finished cycle is a
-`vcycle` telemetry event with its cut.
+`vcycle` telemetry event with its cut and a checkpoint barrier, where a
+resume re-enters; after a deadline no further cycle starts.
 """
 
 from __future__ import annotations
@@ -23,6 +24,8 @@ from ..graphs.csr import device_graph_from_host
 from ..graphs.host import HostGraph, host_partition_metrics
 from ..ops.contraction import contract_clustering
 from ..ops.lp import LPConfig, lp_cluster
+from ..resilience import checkpoint as ckpt
+from ..resilience import deadline as deadline_mod
 from .base import MultilevelScheme
 from .deep import DeepMultilevelPartitioner
 from .refiner import RefinerPipeline
@@ -44,7 +47,20 @@ class VcycleDeepMultilevelPartitioner(MultilevelScheme):
     def partition(self, graph: HostGraph) -> np.ndarray:
         ctx = self.ctx
         k = ctx.partition.k
-        if self.initial_partition is not None:
+        # resume: a `vcycle` checkpoint holds the partition after a
+        # finished cycle; a kill during the initial deep run left a `deep`
+        # checkpoint, which the deep run below resumes on its own
+        resume = ckpt.take_resume("vcycle")
+        start_cycle = 0
+        part = None
+        if resume is not None and "state" in resume["arrays"]:
+            part = np.asarray(resume["arrays"]["state"]["partition"],
+                              dtype=np.int32)
+            start_cycle = int(resume.get("level") or 0) + 1
+            telemetry.event("resume", scheme="vcycle", stage=resume["stage"],
+                            level=resume.get("level"))
+        if part is None and self.initial_partition is not None:
+            # the warm start; a resume above wins over it
             part = np.asarray(self.initial_partition, dtype=np.int32)
             if part.shape != (graph.n,):
                 raise ValueError(f"warm-start partition shape {part.shape} "
@@ -52,7 +68,7 @@ class VcycleDeepMultilevelPartitioner(MultilevelScheme):
             if len(part) and (int(part.min()) < 0 or int(part.max()) >= k):
                 raise ValueError("warm-start partition labels out of range "
                                  f"[0, {k})")
-        else:
+        if part is None:
             deep_ctx = ctx.copy()
             deep_ctx.partitioning.mode = PartitioningMode.DEEP
             deep_ctx.partition = ctx.partition  # the configured weights
@@ -63,7 +79,10 @@ class VcycleDeepMultilevelPartitioner(MultilevelScheme):
             )
             self.levels = deep.levels
 
-        for cycle in range(max(len(ctx.partitioning.vcycles), 1)):
+        for cycle in range(start_cycle,
+                           max(len(ctx.partitioning.vcycles), 1)):
+            if deadline_mod.should_stop():
+                break  # wind-down: a cycle only improves a valid partition
             with self._phase(f"vcycle-{cycle}"):
                 part = self._one_vcycle(graph, part, cycle)
             if telemetry.enabled() and isinstance(graph, HostGraph):
@@ -71,6 +90,13 @@ class VcycleDeepMultilevelPartitioner(MultilevelScheme):
                     "vcycle", cycle=cycle,
                     cut=int(host_partition_metrics(graph, part, k)["cut"]),
                 )
+            part_now = part
+            ckpt.barrier(
+                "vcycle", level=cycle, scheme="vcycle",
+                payload=lambda: {"state": {
+                    "partition": np.asarray(part_now, dtype=np.int32),
+                }},
+            )
         return part
 
     def _one_vcycle(self, graph: HostGraph, part: np.ndarray,

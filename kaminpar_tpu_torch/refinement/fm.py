@@ -13,7 +13,9 @@ below, a sequential FM with a global gain priority queue over border
 nodes, best-prefix rollback and the simple stopping rule, on the gain
 caches of refinement/gains.py.  A refusal of the native FM (k above its
 sparse engine's limit with the dense table unaffordable) returns the
-partition unchanged, as the JAX package does.
+partition unchanged, as the JAX package does.  The native call is the
+`native-fm` fault site: an injected fault runs the numpy FM with a
+`degraded` event.
 """
 
 from __future__ import annotations
@@ -27,6 +29,8 @@ import torch
 from .. import native
 from ..context import FMRefinementContext
 from ..graphs.csr import DeviceGraph, host_graph_from_device
+from ..resilience.errors import RefinerRefused
+from ..resilience.policy import with_fallback
 from .gains import create_host_gain_cache
 
 
@@ -47,7 +51,7 @@ def fm_refine_host(
     part = partition[:n].cpu().numpy().astype(np.int32)
     max_bw = max_block_weights[:k].cpu().numpy().astype(np.int64)
 
-    if os.environ.get(native.NO_NATIVE_FM_ENV, "") == "1":
+    def _numpy_fm() -> np.ndarray:
         node_w = graph.node_weight_array()
         edge_w = graph.edge_weight_array()
         rng = np.random.default_rng(seed)
@@ -57,10 +61,28 @@ def fm_refine_host(
             )
             if improvement <= 0:
                 break
+        return part
+
+    if os.environ.get(native.NO_NATIVE_FM_ENV, "") == "1":
+        _numpy_fm()
     else:
-        # refines `part` in place; a refusal (native.FM_REFUSED) returns
-        # before fm.cpp writes to it
-        native.fm_refine(graph, part, k, max_bw, ctx, seed, threads=threads)
+        def _native_fm() -> np.ndarray:
+            # refines `part` in place; a refusal returns before fm.cpp
+            # writes to it and surfaces as a structured RefinerRefused
+            if native.fm_refine(graph, part, k, max_bw, ctx, seed,
+                                threads=threads) == native.FM_REFUSED:
+                raise RefinerRefused(
+                    f"native FM refused to run at n={graph.n}, k={k}")
+            return part
+
+        def _fm_fallback(exc) -> np.ndarray:
+            # a real refusal keeps the partition; an injected fault (or an
+            # open breaker) runs the numpy FM
+            if isinstance(exc, RefinerRefused) and not exc.injected:
+                return part
+            return _numpy_fm()
+
+        with_fallback(_native_fm, _fm_fallback, site="native-fm")
 
     padded = torch.zeros(dgraph.n_pad, dtype=torch.int32)
     padded[:n] = torch.from_numpy(part)

@@ -7,11 +7,13 @@ coarsener's telemetry events), every event, the output gate's verdict,
 the external scheme's streaming record, and an environment stamp naming
 torch, its CUDA build and the card.
 
-Sections fed by modules this package does not have (checkpoints, the
-anytime wind-down, serving, the memory governor, distributed runs,
-supervision, dynamic sessions, collectives, request tracing, the
-execution ledger, the quality observatory, integrity sentinels) carry the
-JAX package's well-formed disabled defaults.  There is no XLA compile
+The resilience sections come from their modules: `faults` (the active
+plan and every injected fault), `checkpoint`, `anytime` and
+`memory_budget` (annotated by the facade), `integrity` (the sentinels'
+counters).  Sections fed by modules this package does not have (serving,
+distributed runs, supervision, dynamic sessions, collectives, request
+tracing, the execution ledger, the quality observatory) carry the JAX
+package's well-formed disabled defaults.  There is no XLA compile
 step: `compile` is the disabled default and says so, and `perf` holds
 what the card has instead, each hand-written kernel's launches (and
 CUDA-event milliseconds where `_native.EVENT_LOG` was set) and the
@@ -136,10 +138,19 @@ def build_run_report(extra_run: Optional[dict] = None) -> dict:
     the `run` section."""
     from ..utils import timer
 
+    from ..resilience import faults, integrity
+    from ..resilience.errors import CollectiveTimeout
+    from ..resilience.policy import with_fallback
+
     info = _run_info()
     result = info.pop("result", {})
     gate_verdict = info.pop("output_gate", {"checked": False})
     external = info.pop("external", {"enabled": False})
+    # the resilience sections the facade annotates; well-formed defaults
+    # for a run that used none of them
+    ckpt_summary = info.pop("checkpoint", {"enabled": False})
+    anytime = info.pop("anytime", {"anytime": False})
+    memory_budget = info.pop("memory_budget", {"enabled": False})
     run = dict(info)
     if extra_run:
         run.update({k: jsonable(v) for k, v in extra_run.items()})
@@ -166,7 +177,26 @@ def build_run_report(extra_run: Optional[dict] = None) -> dict:
         if eng:
             rating_counts[eng] = rating_counts.get(eng, 0) + 1
 
-    return {
+    def _aggregate():
+        try:
+            return timer.aggregate_across_processes()
+        except (TypeError, AttributeError, KeyError, IndexError,
+                AssertionError, NameError):
+            raise  # programming errors stay loud
+        except Exception as e:
+            raise CollectiveTimeout(
+                f"timer aggregation failed: {type(e).__name__}: {e}"
+            ) from e
+
+    # the `collective` fault site: a failed aggregation degrades the
+    # report to local timers; before the event lists are read, so its
+    # own `degraded` event lands in this report
+    timers_aggregated = with_fallback(
+        _aggregate, lambda exc: None, site="collective",
+        where="report-timers",
+    )
+
+    report = {
         "schema_version": SCHEMA_VERSION,
         "environment": environment_stamp(),
         "run": run,
@@ -178,16 +208,16 @@ def build_run_report(extra_run: Optional[dict] = None) -> dict:
         "events": [e.to_dict() for e in _events()],
         "counters": {},
         "lane_gather": {"mode": "not-probed", "reason": LANE_GATHER_REASON},
-        "faults": {"plan": None, "sites": [], "injected": []},
+        "faults": faults.plan_summary(),
         "degraded": [e.to_dict() for e in _events("degraded")],
         "output_gate": gate_verdict,
         "progress": [p.to_dict() for p in _progress_series()],
         "compile": {"caveat": COMPILE_CAVEAT, "totals": {}, "phases": {}},
-        "checkpoint": {"enabled": False},
-        "anytime": {"anytime": False},
+        "checkpoint": ckpt_summary,
+        "anytime": anytime,
         "serving": {"enabled": False},
         "perf": _perf_section(levels),
-        "memory_budget": {"enabled": False},
+        "memory_budget": memory_budget,
         "quality": {"enabled": False,
                     "caveat": "quality observatory unavailable"},
         "dist_resilience": {"enabled": False},
@@ -197,9 +227,11 @@ def build_run_report(extra_run: Optional[dict] = None) -> dict:
         "tracing": {"enabled": False, "traces": []},
         "ledger": {"enabled": False,
                    "caveat": "execution ledger unavailable"},
-        "integrity": {"enabled": False},
-        "timers_aggregated": timer.aggregate_across_processes(),
+        "integrity": integrity.summary(),
     }
+    if timers_aggregated is not None:
+        report["timers_aggregated"] = timers_aggregated
+    return report
 
 
 def write_run_report(path: str, extra_run: Optional[dict] = None) -> dict:

@@ -15,3 +15,17 @@ import numpy as np
 def host_rng(seed: int, salt: int = 0) -> np.random.Generator:
     """A numpy Generator derived from a seed and a caller salt."""
     return np.random.default_rng(np.uint64((int(seed) << 20) ^ salt))
+
+
+#: The run's seed, set by the facade (the JAX package's global seed): the
+#: seeded fault draws and the sampled audits key their hashes on it.
+_SEED: int = 0
+
+
+def set_seed(seed: int) -> None:
+    global _SEED
+    _SEED = int(seed)
+
+
+def get_seed() -> int:
+    return _SEED

@@ -100,6 +100,16 @@ class Timer:
                 )
             self._stack.pop()
 
+    def unwind_to(self, depth: int) -> int:
+        """Close open scopes until the stack holds ``depth`` entries (the
+        memory governor's per-rung unwind); their time so far is not
+        added.  Returns the number closed."""
+        closed = 0
+        while len(self._stack) > max(1, depth):
+            self._stack.pop()
+            closed += 1
+        return closed
+
     def elapsed(self, *path: str) -> float:
         node = self.root
         for name in path:

@@ -73,6 +73,19 @@ def test_scan_covers_the_file_io_and_telemetry_modules(module):
     importlib.import_module(name)
 
 
+@pytest.mark.parametrize("module", [
+    "resilience/__init__.py", "resilience/errors.py",
+    "resilience/runstate.py", "resilience/faults.py",
+    "resilience/policy.py", "resilience/deadline.py",
+    "resilience/checkpoint.py", "resilience/memory.py",
+    "resilience/integrity.py", "io/snapshot.py", "caching.py",
+])
+def test_scan_covers_the_resilience_modules(module):
+    """The resilience layer's own copies are in the scan: each imports,
+    and imports neither JAX nor the JAX package."""
+    test_scan_covers_the_file_io_and_telemetry_modules(module)
+
+
 def test_port_schema_is_a_copy_of_the_jax_schema():
     """The run-report schema differs from the JAX package's only in its
     comment, the environment stamp and the perf section's kernel table."""

@@ -30,14 +30,10 @@ CASES = {
 }
 
 # fields of the JAX package's context that the port does not have: the
-# subtrees of dynamic sessions and debug dumps, checkpoints and deadlines,
-# and knobs that the JAX package accepts for parity with the reference
-# and reads nowhere
+# subtrees of dynamic sessions and debug dumps, and knobs that the JAX
+# package accepts for parity with the reference and reads nowhere
 JAX_ONLY = {
     "dynamic", "debug",
-    "resilience.checkpoint_dir", "resilience.resume",
-    "resilience.time_budget", "resilience.budget_grace",
-    "resilience.hard_deadline_factor",
     "coarsening.clustering.lp.large_degree_threshold",
     "coarsening.clustering.lp.max_num_neighbors",
     "coarsening.clustering.lp.two_hop_threshold",
@@ -128,9 +124,11 @@ def test_rb_with_toplevel_refinement_bitwise_equal():
     np.testing.assert_array_equal(jpart, tpart)
 
 
-def test_external_scheme_raises():
-    """The external scheme runs (it used to raise); it raises when the
-    declared budget cannot hold even the floor chunk's stream state."""
+def test_external_scheme_raises(monkeypatch):
+    """The external scheme runs (it used to raise).  A declared budget
+    that cannot hold even the floor chunk's stream state sends the memory
+    governor to its host-only rung; with the governor switched off the
+    scheme raises DeviceOOM."""
     ctx = kp.context_from_preset("default")
     ctx.partitioning.mode = kp.context.PartitioningMode.EXTERNAL
     ctx.coarsening.contraction_limit = 20
@@ -141,7 +139,11 @@ def test_external_scheme_raises():
     assert solver.last_external["streamed_levels"] >= 1
     assert solver.last_gate["valid"]
     ctx.resilience.memory_budget = 1000.0
-    with pytest.raises(MemoryError, match="floor stream state"):
+    part = solver.compute_partition(k=2, epsilon=0.03, seed=1)
+    assert part.shape == (graph.n,) and solver.last_gate["valid"]
+    assert kp.resilience.memory.summary()["rung_name"] == "host-only"
+    monkeypatch.setenv("KAMINPAR_TPU_MEM_GOVERNOR", "0")
+    with pytest.raises(kp.resilience.DeviceOOM, match="floor stream state"):
         solver.compute_partition(k=2, epsilon=0.03, seed=1)
 
 
