@@ -123,6 +123,39 @@ Phases, each fatal on failure:
   10e. the integrity sentinels' cost: the large `default` with
      KAMINPAR_TPU_INTEGRITY=0 and with the sentinels, the same
      partition, both walls and `overhead_pct`.
+  11a. dynamic sessions and the entry points at n = 2^14, k=8, on the
+     CPU and on the card, each pair bitwise equal: a three-step delta
+     chain (synth_chain, 1% churn, one vertex added at step 3) through
+     run_chain with replicas 1 and 2 (equal chain digests and
+     decisions), a step inserting 10% more edges, half of them uniform,
+     which must escalate or go cold, the CLI (`python -m
+     kaminpar_tpu_torch`, the card by default) against the CLI with
+     `--device cpu` and phase 4's partition, the C ABI (the smoke's C
+     program linked to libckaminpar_tpu_torch.so, KAMINPAR_TPU_PLATFORM
+     unset) against phase 4's partition, and `tools components`;
+  11b. bench.py's dynamic measurement on the medium graph: phase 5's
+     partition committed to a session (its digest and the chain's
+     pinned), four synth_chain(seed=41, edge_churn=0.01) steps, each
+     applied in place, repartitioned warm and followed by a cold twin
+     (`default` on the mutated graph), every mode, drift, cut, partition
+     digest, chain digest and twin cut held to EXPECTED_DYNAMIC; then
+     the same chain with replicas 2 held to EXPECTED_DYNAMIC_REPLICAS.
+     A warm step must launch K1 and K2 (its restricted LP takes sort2,
+     never the fused K3), a cold twin all three; prints the walls, the
+     warm speedup (mean cold twin wall over mean warm wall) and the
+     largest fractional cut gap;
+  11c. the large graph's two-step chain the same way (no twins), with
+     the batch synthesis and apply host seconds;
+  11d. the CLI on the card in a subprocess: the medium spec written to
+     phase 5's partition (RESULT cut 250,236), its walls (interpreter
+     start and imports, CUDA context, kernel loading, io, partitioning),
+     and `--delta-batch` on 11b's four batches giving the JAX CLI's
+     final partition (EXPECTED_CLI_CHAIN); the CLI's main in this
+     process counts its launches;
+  11e. the C ABI on the card: examples/c_api.c compiled unchanged and
+     run, the C program partitioning the medium CSR from a second thread
+     (cut 250,236, phase 5's partition), and kmp_compute_partition
+     called in this process through ctypes for its launch counts.
   Phases 5, 7b, 8b and 9b fail on any degradation, rung, spill,
      wind-down or integrity-violation event (run_main);
   6. print the per-kernel JSON line, then the final status line.
@@ -603,6 +636,19 @@ def main() -> None:
     slice_runs.update(run_resilience_paths(graphs, main_parts, kp, counted,
                                            path_kernels, dev, metrics,
                                            device_graph_from_host, torch))
+
+    # -- 11. dynamic sessions, the CLI, the tools and the C ABI
+    print(json.dumps({"phase_11_at_s": round(time.perf_counter() - T_START,
+                                             1)}), flush=True)
+    if os.environ.get("KAMINPAR_TPU_PLATFORM", "").strip() == "cpu":
+        fail("KAMINPAR_TPU_PLATFORM=cpu would put the C ABI on the CPU")
+    tmp = tempfile.mkdtemp(prefix="kp-smoke-dynamic-")
+    try:
+        c_abi = check_dynamic_parity(g_small, small_default, kp, tmp)
+        slice_runs.update(run_dynamic_paths(graphs, main_parts, kp, counted,
+                                            path_kernels, tmp, c_abi, torch))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
 
     for entry in kernels:
         entry["launches"] = launches[entry["name"]]
@@ -1807,6 +1853,647 @@ def run_main(name, graph, kp, counted, dev, metrics, device_graph_from_host,
         "card": CARD,
     }), flush=True)
     return partition, solver
+
+
+# ---------------------------------------------------------------------------
+# phase 11: dynamic sessions and the command lines
+# ---------------------------------------------------------------------------
+
+REPO = os.path.dirname(os.path.abspath(__file__))
+MEDIUM_SPEC = "gen:rmat;n=65536;m=600000;seed=3"
+SMALL_SPEC = "gen:rmat;n=16384;m=120000;seed=3"
+# the register partitions (phase 5's, committed to a session) and the
+# session's chain digest after the commit; a partition digest is the
+# first 16 hex digits of the sha256 of its int32 bytes, a chain digest
+# the first 12 of the session's chain
+DYNAMIC_REGISTER = {
+    "medium": ("29eda37c6f9fce0f", "87d55db6ccd3"),
+    "large": ("53d97387e082e729", "94475b17a63c"),
+}
+# bench.py's dynamic measurement (PERF.md section 4), k=16, eps=0.03,
+# seed 1 for every step: synth_chain(graph, steps, seed=41,
+# edge_churn=0.01), each step applied in place and repartitioned warm,
+# then a cold twin (`default`) on the mutated graph.  Per step: drift
+# (six decimals), warm cut, partition digest, chain digest after the
+# commit, cold twin's cut (None: no twin).  The JAX package's CPU runs
+EXPECTED_DYNAMIC = {
+    "medium": [
+        (0.004180, 249_508, "86d2c6b6afc816a7", "19955361abb2", 249_843),
+        (0.004356, 249_450, "7613de733494efaa", "ac991ad9334f", 250_037),
+        (0.004286, 249_456, "5542aef4870fce80", "dd32d967b87f", 249_181),
+        (0.004336, 249_409, "0dc0e23a7ea7ae09", "e4ed1f3b2fcd", 251_622),
+    ],
+    "large": [
+        (0.002925, 2_959_622, "d43bcf69685add3d", "24d7428e7fb7", None),
+        (0.002944, 2_958_483, "60a65d99716c5371", "585545e336d3", None),
+    ],
+}
+# the same chain on medium with ctx.dynamic.replicas = 2: drift, the
+# (warm, cold replica at seed 2) cuts, the kept cut, its digest, the chain
+EXPECTED_DYNAMIC_REPLICAS = [
+    (0.004180, [249_508, 249_197], 249_197, "44592566f89fc52b",
+     "21693108cd25"),
+    (0.004359, [248_789, 250_445], 248_789, "6dd569a7efc2cd99",
+     "6d805587b174"),
+    (0.004266, [248_763, 249_028], 248_763, "4b6675a2fc471299",
+     "fc230fd28cb9"),
+    (0.004321, [248_726, 249_361], 248_726, "fdbc488c8097b4bb",
+     "70f783d065df"),
+]
+# the first 12 hex digits of the large chain's batch digests
+LARGE_BATCH_DIGESTS = ("f7207df26d01", "38cef75b8ec2")
+# the JAX CLI on the medium chain's four batches (`--delta-batch`, step i
+# at seed 1 + i): the DYNAMIC lines' cuts and the written partition
+EXPECTED_CLI_CHAIN = ([250_236, 249_513, 249_416, 249_438, 249_408],
+                      "6c17ca11be6f31f9")
+
+C_PROGRAM = r"""
+#include <pthread.h>
+#include <stdio.h>
+#include <stdlib.h>
+#include "ckaminpar_tpu.h"
+
+/* chip_smoke.py's C program: partitions the CSR of a binary file
+ * (n, m, xadj[n+1] int64, adjncy[m] int32, adjwgt[m] int32) with
+ * `default` at k = argv[2], eps 0.03, seed 1, from a second thread when
+ * argv[3] is given; prints the cut and one block id per line. */
+static int64_t n, *xadj;
+static int32_t *adjncy, *adjwgt, *part, k;
+static int64_t cut = -2;
+static kmp_partitioner *p;
+
+static void *compute(void *arg) {
+  (void)arg;
+  cut = kmp_compute_partition(p, n, xadj, adjncy, NULL, adjwgt, k, 0.03,
+                              part);
+  return NULL;
+}
+
+int main(int argc, char **argv) {
+  FILE *f = fopen(argv[1], "rb");
+  int64_t m;
+  if (!f || fread(&n, 8, 1, f) != 1 || fread(&m, 8, 1, f) != 1) return 5;
+  xadj = malloc(8 * (n + 1));
+  adjncy = malloc(4 * m);
+  adjwgt = malloc(4 * m);
+  part = malloc(4 * n);
+  if (fread(xadj, 8, n + 1, f) != (size_t)(n + 1)) return 5;
+  if (fread(adjncy, 4, m, f) != (size_t)m) return 5;
+  if (fread(adjwgt, 4, m, f) != (size_t)m) return 5;
+  fclose(f);
+  k = atoi(argv[2]);
+  p = kmp_create("default", 1);
+  if (!p) return 2;
+  if (argc > 3) {
+    pthread_t t;
+    pthread_create(&t, NULL, compute, NULL);
+    pthread_join(t, NULL);
+  } else {
+    compute(NULL);
+  }
+  if (cut < 0) {
+    fprintf(stderr, "%s\n", kmp_last_error(p));
+    return 3;
+  }
+  printf("cut=%lld\n", (long long)cut);
+  for (int64_t u = 0; u < n; ++u) printf("%d\n", part[u]);
+  kmp_free(p);
+  return 0;
+}
+"""
+
+
+def part_digest(partition) -> str:
+    return hashlib.sha256(
+        np.asarray(partition, dtype=np.int32).tobytes()).hexdigest()[:16]
+
+
+def pin(what, got, expected) -> None:
+    """Fail unless `got` is the JAX package's `expected`."""
+    if got != expected:
+        fail(f"{what}: {got!r}, the JAX package's is {expected!r}")
+
+
+def graph_copy(graph):
+    """A new HostGraph object over the same arrays: a session stamps its
+    identity onto the object it owns, never onto a shared one."""
+    from kaminpar_tpu_torch.graphs.host import HostGraph
+
+    return HostGraph(graph.xadj, graph.adjncy, graph.node_weights,
+                     graph.edge_weights)
+
+
+@contextlib.contextmanager
+def counting(counted, torch, record):
+    """Count `counted`'s launches from zero and their CUDA-event time over
+    the block into `record` ("launches", "path_ms")."""
+    from kaminpar_tpu_torch import _native
+
+    for fn in counted:
+        fn.launches = 0
+    _native.EVENT_LOG = {}
+    try:
+        yield record
+    finally:
+        torch.cuda.synchronize()
+        log, _native.EVENT_LOG = _native.EVENT_LOG, None
+        record["launches"] = {fn.__name__: fn.launches for fn in counted}
+        record["path_ms"] = {name: sum(a.elapsed_time(b) for a, b in ev)
+                             for name, ev in log.items()}
+
+
+def need(what, record, kernels) -> None:
+    for fn in kernels:
+        if record["launches"][fn.__name__] <= 0:
+            fail(f"{what}: kernel {fn.__name__} was never launched")
+
+
+def add_records(total, record) -> None:
+    """Sum one run's launches and CUDA-event times into `total`."""
+    for key in ("launches", "path_ms"):
+        into = total.setdefault(key, {})
+        for name, value in record[key].items():
+            into[name] = into.get(name, 0) + value
+
+
+def write_csr(path, graph) -> None:
+    """The C program's binary CSR file."""
+    with open(path, "wb") as f:
+        np.asarray([graph.n, graph.m], dtype=np.int64).tofile(f)
+        np.asarray(graph.xadj, dtype=np.int64).tofile(f)
+        np.asarray(graph.adjncy, dtype=np.int32).tofile(f)
+        np.asarray(graph.edge_weight_array(), dtype=np.int32).tofile(f)
+
+
+def subprocess_env(platform=None) -> dict:
+    """The environment of a CLI or C ABI subprocess: the checkout on
+    PYTHONPATH (the C ABI's embedded interpreter imports the package from
+    there), KAMINPAR_TPU_PLATFORM as given (unset: the card)."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = REPO + (os.pathsep + env["PYTHONPATH"]
+                                if env.get("PYTHONPATH") else "")
+    env.pop("KAMINPAR_TPU_PLATFORM", None)
+    if platform is not None:
+        env["KAMINPAR_TPU_PLATFORM"] = platform
+    return env
+
+
+def run_process(what, cmd, env=None, timeout=600):
+    """Run one subprocess to its end; fails unless it exits 0.  Returns
+    (stdout, stderr, wall seconds)."""
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd, capture_output=True, text=True, cwd=REPO,
+                         env=env or subprocess_env(), timeout=timeout)
+    wall = time.perf_counter() - t0
+    if res.returncode != 0:
+        fail(f"{what}: exit {res.returncode}: {res.stderr[-1500:]}")
+    return res.stdout, res.stderr, wall
+
+
+def run_c_program(what, program, csr_path, k, thread, env=None):
+    """The C program's (cut, partition, wall seconds)."""
+    cmd = [program, csr_path, str(k)] + (["thread"] if thread else [])
+    out, _, wall = run_process(what, cmd, env)
+    lines = out.split()
+    if not lines or not lines[0].startswith("cut="):
+        fail(f"{what}: no cut line in {out[:200]!r}")
+    return int(lines[0][4:]), np.asarray(lines[1:], dtype=np.int32), wall
+
+
+def build_c_abi(tmp) -> dict:
+    """Build libckaminpar_tpu_torch.so and compile, against it, the smoke's
+    C program and examples/c_api.c unchanged.  Returns their paths and the
+    build seconds."""
+    from kaminpar_tpu_torch.native.build_capi import build
+
+    t0 = time.perf_counter()
+    lib = build()
+    build_s = time.perf_counter() - t0
+    lib_dir = os.path.dirname(lib)
+    link = [f"-I{os.path.join(REPO, 'include')}", f"-L{lib_dir}",
+            "-lckaminpar_tpu_torch", f"-Wl,-rpath,{lib_dir}"]
+    program_c = os.path.join(tmp, "partition_csr.c")
+    with open(program_c, "w") as f:
+        f.write(C_PROGRAM)
+    paths = {"lib": lib, "program": os.path.join(tmp, "partition_csr"),
+             "example": os.path.join(tmp, "c_api")}
+    t0 = time.perf_counter()
+    for src, exe, extra in ((program_c, paths["program"], ["-pthread"]),
+                            (os.path.join(REPO, "examples", "c_api.c"),
+                             paths["example"], [])):
+        res = subprocess.run(["gcc", src, "-o", exe, *extra, *link],
+                             capture_output=True, text=True)
+        if res.returncode != 0:
+            fail(f"gcc {os.path.basename(src)} against {lib}: "
+                 f"{res.stderr[-800:]}")
+    print(json.dumps({"c_abi_build": lib, "build_s": build_s,
+                      "gcc_s": time.perf_counter() - t0}), flush=True)
+    return paths
+
+
+def check_dynamic_parity(g_small, small_default, kp, tmp, card="cuda"):
+    """Phase 11a at n = 2^14, k=8, on the CPU and on the card (`card`),
+    each pair bitwise equal: a three-step chain (1% churn, one vertex add
+    at step 3) through run_chain with replicas 1 and 2; a step that
+    inserts 10% more edges, half of them between uniformly drawn
+    endpoints, which must go cold or escalate; the CLI
+    (`python -m kaminpar_tpu_torch`, the card by default) against the
+    CLI in this process with --device cpu; the C ABI (the smoke's C
+    program, KAMINPAR_TPU_PLATFORM unset) against phase 4's CPU partition;
+    and `tools components` on both devices.  Returns the C ABI build."""
+    from kaminpar_tpu_torch import cli, tools
+    from kaminpar_tpu_torch.dynamic import (
+        GraphSession,
+        random_delta_batch,
+        repartition,
+        run_chain,
+        synth_chain,
+    )
+    from kaminpar_tpu_torch.graphs.host import host_partition_metrics
+    from kaminpar_tpu_torch.io import write_metis, write_partition
+
+    batches = synth_chain(g_small, steps=3, seed=41, edge_churn=0.01,
+                          vertex_adds_every=3)
+    for replicas in (1, 2):
+        runs = {}
+        for device in ("cpu", card):
+            ctx = kp.context_from_preset("default")
+            ctx.dynamic.replicas = replicas
+            t0 = time.perf_counter()
+            part, section = run_chain(graph_copy(g_small), batches, ctx,
+                                      k=8, epsilon=0.03, seed=1,
+                                      device=device)
+            runs[device] = (part, section)
+            print(json.dumps({
+                "small_chain": f"replicas {replicas}", "device": device,
+                "modes": [d["mode"] for d in section["decisions"]],
+                "cuts": section["cut_trajectory"],
+                "chain": section["sessions"][0]["chain"],
+                "wall_s": round(time.perf_counter() - t0, 3)}), flush=True)
+        (pc, sc), (pd, sd) = runs["cpu"], runs[card]
+        if not np.array_equal(pc, pd) or sc["sessions"] != sd["sessions"]:
+            fail(f"n=2^14 chain, replicas {replicas}: CPU and card differ")
+        if [d["mode"] for d in sd["decisions"]] != [
+                d["mode"] for d in sc["decisions"]]:
+            fail(f"n=2^14 chain, replicas {replicas}: decisions differ")
+
+    cut0 = int(host_partition_metrics(g_small, small_default, 8)["cut"])
+    outs = {}
+    for device in ("cpu", card):
+        s = GraphSession("uniform", graph_copy(g_small), k=8)
+        s.commit_partition(small_default, cut0)
+        s.apply(random_delta_batch(s.graph, seed=43, edge_churn=0.1,
+                                   insert_frac=1.0, uniform_frac=0.5))
+        outs[device] = out = repartition(s, kp.context_from_preset("default"),
+                                         k=8, epsilon=0.03, seed=1,
+                                         device=device)
+        print(json.dumps({"small_uniform_step": device, "mode": out.mode,
+                          "escalated": out.escalated, "drift": out.drift,
+                          "cut_before": cut0, "cut": out.cut}), flush=True)
+    if not np.array_equal(outs["cpu"].partition, outs[card].partition):
+        fail("n=2^14 uniform step: CPU and card partitions differ")
+    if not (outs[card].mode == "cold" or outs[card].escalated):
+        fail("n=2^14 uniform step: neither cold nor escalated")
+
+    cli_out = os.path.join(tmp, "small.cli.part")
+    _, _, wall = run_process(
+        "CLI n=2^14", [sys.executable, "-m", "kaminpar_tpu_torch", SMALL_SPEC,
+                       "-k", "8", "-e", "0.03", "-s", "1", "-q",
+                       "-o", cli_out])
+    cpu_out = os.path.join(tmp, "small.cpu.part")
+    if cli.main([SMALL_SPEC, "-k", "8", "-e", "0.03", "-s", "1", "-q",
+                 "--device", "cpu", "-o", cpu_out]) != 0:
+        fail("CLI n=2^14 on the CPU: non-zero exit")
+    ref = os.path.join(tmp, "small.phase4.part")
+    write_partition(ref, small_default)
+    if not (open(cli_out, "rb").read() == open(cpu_out, "rb").read()
+            == open(ref, "rb").read()):
+        fail("CLI n=2^14: the card's, the CPU's and phase 4's partition "
+             "files differ")
+    print(json.dumps({"small_cli": "bitwise-equal", "wall_s": wall}),
+          flush=True)
+
+    c_abi = build_c_abi(tmp)
+    csr = os.path.join(tmp, "small.csr")
+    write_csr(csr, g_small)
+    cut, part, wall = run_c_program("C ABI n=2^14", c_abi["program"], csr, 8,
+                                   thread=False)
+    if not np.array_equal(part, small_default) or cut != cut0:
+        fail("C ABI n=2^14: not phase 4's partition")
+    print(json.dumps({"small_c_abi": "bitwise-equal", "cut": cut,
+                      "wall_s": wall}), flush=True)
+
+    metis = os.path.join(tmp, "small.metis")
+    write_metis(g_small, metis)
+    comps = {}
+    for device in ("cpu", card):
+        comps[device] = os.path.join(tmp, f"small.components.{device}")
+        if tools.main(["components", metis, "--device", device, "-o",
+                       comps[device]]) != 0:
+            fail(f"tools components on {device}: non-zero exit")
+    if open(comps["cpu"], "rb").read() != open(comps[card], "rb").read():
+        fail("tools components: CPU and card labels differ")
+    print(json.dumps({"small_components": "bitwise-equal",
+                      "at_s": round(time.perf_counter() - T_START, 1)}),
+          flush=True)
+    return c_abi
+
+
+def run_dynamic_paths(graphs, main_parts, kp, counted, path_kernels, tmp,
+                      c_abi, torch, card="cuda") -> dict:
+    """Phases 11b-11e at full width, k=16, eps=0.03, seed=1: the bench's
+    medium chain (warm steps and cold twins, then replicas 2) and the
+    large chain, each step held to the JAX package's pins; the CLI on the
+    card (phase 5's medium partition, and `--delta-batch` giving the JAX
+    CLI's final partition), with its subprocess walls; the C ABI (the
+    smoke's C program from a second thread, and examples/c_api.c).  Returns
+    the runs' (launches, path_ms) for the kernels line."""
+    from kaminpar_tpu_torch import cli
+    from kaminpar_tpu_torch.dynamic import (
+        GraphSession,
+        repartition,
+        synth_chain,
+    )
+    from kaminpar_tpu_torch.graphs.host import host_partition_metrics
+
+    k1_k2 = path_kernels[:2]
+    results = {}
+
+    def register(cell):
+        g = graphs[cell][0]
+        part = main_parts[cell]
+        pin(f"{cell} register partition", part_digest(part),
+            DYNAMIC_REGISTER[cell][0])
+        s = GraphSession("bench", graph_copy(g), k=K_MAIN)
+        s.commit_partition(part, int(host_partition_metrics(
+            g, part, K_MAIN)["cut"]))
+        pin(f"{cell} register chain", s.chain[:12], DYNAMIC_REGISTER[cell][1])
+        return s
+
+    def warm_step(cell, s, batch, step, ctx, record):
+        t0 = time.perf_counter()
+        info = s.apply(batch)
+        apply_s = time.perf_counter() - t0
+        if not info["in_place"]:
+            fail(f"{cell} step {step}: the apply rebuilt")
+        with counting(counted, torch, record):
+            t0 = time.perf_counter()
+            out = repartition(s, ctx, k=K_MAIN, epsilon=0.03, seed=1,
+                              device=card)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        return info, out, apply_s, wall
+
+    # -- 11b. the medium chain: warm steps and cold twins
+    t0 = time.perf_counter()
+    batches = synth_chain(graphs["medium"][0], steps=4, seed=41,
+                          edge_churn=0.01)
+    synth_s = time.perf_counter() - t0
+    s = register("medium")
+    ctx = kp.context_from_preset("default")
+    warm_total, cold_total, rows = {}, {}, []
+    for step, batch in enumerate(batches):
+        drift, cut, digest, chain, twin_cut = EXPECTED_DYNAMIC["medium"][step]
+        warm = {}
+        info, out, apply_s, wall = warm_step("medium", s, batch, step, ctx,
+                                             warm)
+        pin(f"medium step {step} mode", out.mode, "warm")
+        pin(f"medium step {step} drift", round(out.drift, 6), drift)
+        pin(f"medium step {step} cut", out.cut, cut)
+        pin(f"medium step {step} partition", part_digest(out.partition),
+            digest)
+        pin(f"medium step {step} chain", s.chain[:12], chain)
+        need(f"medium warm step {step}", warm, k1_k2)
+        cold = {}
+        with counting(counted, torch, cold):
+            t0 = time.perf_counter()
+            twin = kp.KaMinPar("default", device=card).set_graph(
+                s.graph).compute_partition(k=K_MAIN, epsilon=0.03, seed=1)
+            torch.cuda.synchronize()
+            cold_wall = time.perf_counter() - t0
+        twin_m = host_partition_metrics(s.graph, twin, K_MAIN)
+        pin(f"medium step {step} cold twin cut", int(twin_m["cut"]),
+            twin_cut)
+        need(f"medium cold twin {step}", cold, path_kernels)
+        add_records(warm_total, warm)
+        add_records(cold_total, cold)
+        rows.append({"step": step, "m": info["m"], "drift": out.drift,
+                     "warm_cut": out.cut, "cold_cut": int(twin_m["cut"]),
+                     "apply_s": apply_s, "warm_wall_s": wall,
+                     "cold_wall_s": cold_wall, "warm": warm, "cold": cold})
+        print(json.dumps({"dynamic_medium_step": rows[-1], "card": CARD}),
+              flush=True)
+    warm_mean = statistics.mean(r["warm_wall_s"] for r in rows)
+    cold_mean = statistics.mean(r["cold_wall_s"] for r in rows)
+    print(json.dumps({
+        "dynamic_medium": "pins held", "synth_s": synth_s,
+        "warm_wall_s_mean": warm_mean, "cold_wall_s_mean": cold_mean,
+        "warm_speedup": cold_mean / warm_mean,
+        "max_cut_gap": max((r["warm_cut"] - r["cold_cut"]) / r["cold_cut"]
+                           for r in rows),
+        "in_place": s.in_place, "rebuilds": s.rebuilds,
+        "at_s": round(time.perf_counter() - T_START, 1), "card": CARD}),
+        flush=True)
+    results["medium/dynamic warm steps (4)"] = (
+        warm_total["launches"], warm_total["path_ms"])
+    results["medium/dynamic cold twins (4)"] = (
+        cold_total["launches"], cold_total["path_ms"])
+
+    # ... then the replica race
+    s = register("medium")
+    ctx = kp.context_from_preset("default")
+    ctx.dynamic.replicas = 2
+    for step, batch in enumerate(batches):
+        drift, cuts, cut, digest, chain = EXPECTED_DYNAMIC_REPLICAS[step]
+        record = {}
+        _, out, _, wall = warm_step("medium replicas", s, batch, step, ctx,
+                                    record)
+        pin(f"medium replicas step {step} mode", out.mode, "replica")
+        pin(f"medium replicas step {step} drift", round(out.drift, 6), drift)
+        pin(f"medium replicas step {step} cuts", out.replica_cuts, cuts)
+        pin(f"medium replicas step {step} cut", out.cut, cut)
+        pin(f"medium replicas step {step} partition",
+            part_digest(out.partition), digest)
+        pin(f"medium replicas step {step} chain", s.chain[:12], chain)
+        need(f"medium replicas step {step}", record, path_kernels)
+        print(json.dumps({"dynamic_medium_replicas_step": step,
+                          "cuts": out.replica_cuts, "kept": out.cut,
+                          "wall_s": wall, **record, "card": CARD}),
+              flush=True)
+
+    # -- 11c. the large chain
+    t0 = time.perf_counter()
+    batches_large = synth_chain(graphs["large"][0], steps=2, seed=41,
+                                edge_churn=0.01)
+    synth_large_s = time.perf_counter() - t0
+    pin("large batch digests", tuple(b.digest()[:12] for b in batches_large),
+        LARGE_BATCH_DIGESTS)
+    s = register("large")
+    large_total = {}
+    for step, batch in enumerate(batches_large):
+        drift, cut, digest, chain, _ = EXPECTED_DYNAMIC["large"][step]
+        record = {}
+        info, out, apply_s, wall = warm_step(
+            "large", s, batch, step, kp.context_from_preset("default"),
+            record)
+        pin(f"large step {step} mode", out.mode, "warm")
+        pin(f"large step {step} drift", round(out.drift, 6), drift)
+        pin(f"large step {step} cut", out.cut, cut)
+        pin(f"large step {step} partition", part_digest(out.partition),
+            digest)
+        pin(f"large step {step} chain", s.chain[:12], chain)
+        need(f"large warm step {step}", record, k1_k2)
+        add_records(large_total, record)
+        print(json.dumps({"dynamic_large_step": step, "m": info["m"],
+                          "delta_mass": info["delta_mass"],
+                          "cut": out.cut, "imbalance": out.imbalance,
+                          "apply_s": apply_s, "warm_wall_s": wall,
+                          **record, "card": CARD}), flush=True)
+    print(json.dumps({"dynamic_large": "pins held",
+                      "synth_s": synth_large_s, "in_place": s.in_place,
+                      "rebuilds": s.rebuilds,
+                      "at_s": round(time.perf_counter() - T_START, 1),
+                      "card": CARD}), flush=True)
+    results["large/dynamic warm steps (2)"] = (
+        large_total["launches"], large_total["path_ms"])
+
+    # -- 11d. the CLI on the card
+    medium_ref = os.path.join(tmp, "medium.phase5.part")
+    from kaminpar_tpu_torch.io import write_partition
+
+    write_partition(medium_ref, main_parts["medium"])
+    cli_part = os.path.join(tmp, "medium.cli.part")
+    out, err, wall = run_process(
+        "CLI medium", [sys.executable, "-m", "kaminpar_tpu_torch",
+                       MEDIUM_SPEC, "-k", "16", "-e", "0.03", "-s", "1",
+                       "-o", cli_part])
+    if open(cli_part, "rb").read() != open(medium_ref, "rb").read():
+        fail("CLI medium: not phase 5's partition")
+    result = [ln for ln in err.splitlines() if "RESULT cut=" in ln]
+    if not result:
+        fail("CLI medium: no RESULT line")
+    pin("CLI medium RESULT cut",
+        int(result[0].split("RESULT cut=")[1].split()[0]),
+        EXPECTED_CUTS["medium"])
+    times = [ln for ln in out.splitlines() if ln.startswith("TIME ")]
+    io_s, part_s = (float(w.split("=")[1].rstrip("s"))
+                    for w in times[0].split()[1:3])
+    _, _, start_s = run_process("interpreter start", [
+        sys.executable, "-c", "import kaminpar_tpu_torch.cli"])
+    load_out, _, _ = run_process("kernel loading", [
+        sys.executable, "-c",
+        "import json, time, torch\n"
+        "from kaminpar_tpu_torch import _native\n"
+        "t0 = time.perf_counter(); torch.cuda.init()\n"
+        "torch.zeros(1, device='cuda'); t1 = time.perf_counter()\n"
+        "[_native.library(s) for s in _native.SOURCES]\n"
+        "print(json.dumps([t1 - t0, time.perf_counter() - t1]))"])
+    cuda_init_s, load_s = json.loads(load_out)
+    print(json.dumps({
+        "cli_medium": "phase 5's partition", "result": result[0].strip(),
+        "process_wall_s": wall, "interpreter_start_and_imports_s": start_s,
+        "cuda_context_s": cuda_init_s, "kernel_loading_s": load_s,
+        "io_s": io_s, "partitioning_s": part_s, "card": CARD}), flush=True)
+
+    deltas = os.path.join(tmp, "medium.deltas.json")
+    with open(deltas, "w") as f:
+        json.dump([b.to_dict() for b in batches], f)
+    chain_part = os.path.join(tmp, "medium.chain.part")
+    out, _, wall = run_process(
+        "CLI --delta-batch", [sys.executable, "-m", "kaminpar_tpu_torch",
+                              MEDIUM_SPEC, "-k", "16", "-e", "0.03", "-s",
+                              "1", "--delta-batch", deltas, "-o",
+                              chain_part])
+    cuts = [int(w.split("=")[1]) for ln in out.splitlines()
+            if ln.startswith("DYNAMIC step=") for w in ln.split()
+            if w.startswith("cut=")]
+    pin("CLI --delta-batch cuts", cuts, EXPECTED_CLI_CHAIN[0])
+    pin("CLI --delta-batch partition", part_digest(
+        np.loadtxt(chain_part, dtype=np.int32)), EXPECTED_CLI_CHAIN[1])
+    print(json.dumps({"cli_delta_batch": "the JAX CLI's partition",
+                      "cuts": cuts, "process_wall_s": wall,
+                      "chain_line": [ln for ln in out.splitlines()
+                                     if ln.startswith("DYNAMIC-CHAIN")],
+                      "card": CARD}), flush=True)
+
+    # the CLI's main in this process, for the launch counts
+    record = {}
+    inproc = os.path.join(tmp, "medium.inproc.part")
+    with counting(counted, torch, record):
+        rc = cli.main([MEDIUM_SPEC, "-k", "16", "-e", "0.03", "-s", "1",
+                       "-q", "--device", card, "-o", inproc])
+    if rc != 0 or open(inproc, "rb").read() != open(medium_ref, "rb").read():
+        fail("CLI medium in this process: not phase 5's partition")
+    need("CLI medium", record, path_kernels)
+    results["medium/CLI"] = (record["launches"], record["path_ms"])
+
+    # -- 11e. the C ABI on the card
+    out, _, wall = run_process("examples/c_api.c", [c_abi["example"]])
+    if not out.startswith("cut="):
+        fail(f"examples/c_api.c: {out[:200]!r}")
+    csr = os.path.join(tmp, "medium.csr")
+    write_csr(csr, graphs["medium"][0])
+    cut, part, c_wall = run_c_program("C ABI medium", c_abi["program"], csr,
+                                     K_MAIN, thread=True)
+    pin("C ABI medium cut", cut, EXPECTED_CUTS["medium"])
+    if not np.array_equal(part, main_parts["medium"]):
+        fail("C ABI medium: not phase 5's partition")
+    print(json.dumps({"c_abi_medium": "phase 5's partition",
+                      "example": out.strip(), "second_thread": True,
+                      "process_wall_s": c_wall,
+                      "at_s": round(time.perf_counter() - T_START, 1),
+                      "card": CARD}), flush=True)
+    results.update(c_abi_in_process(c_abi["lib"], graphs["medium"][0],
+                                    main_parts["medium"], counted,
+                                    path_kernels, torch))
+    return results
+
+
+def c_abi_in_process(lib, graph, expected, counted, path_kernels,
+                     torch) -> dict:
+    """The C ABI's kmp_compute_partition called in this process through
+    ctypes (the library finds this interpreter running), for the launch
+    counts.  Only where libpython is a shared library: with a static
+    interpreter the library would start a second runtime."""
+    import ctypes
+    import sysconfig
+
+    if not sysconfig.get_config_var("Py_ENABLE_SHARED"):
+        print(json.dumps({"c_abi_launches": "not measured (static "
+                          "libpython)"}), flush=True)
+        return {}
+    c = ctypes.CDLL(lib)
+    c.kmp_create.restype = ctypes.c_void_p
+    c.kmp_create.argtypes = [ctypes.c_char_p, ctypes.c_int]
+    c.kmp_free.argtypes = [ctypes.c_void_p]
+    c.kmp_last_error.restype = ctypes.c_char_p
+    c.kmp_last_error.argtypes = [ctypes.c_void_p]
+    c.kmp_compute_partition.restype = ctypes.c_int64
+    ptr = ctypes.c_void_p
+    c.kmp_compute_partition.argtypes = [
+        ctypes.c_void_p, ctypes.c_int64, ptr, ptr, ptr, ptr, ctypes.c_int32,
+        ctypes.c_double, ptr]
+    xadj = np.ascontiguousarray(graph.xadj, dtype=np.int64)
+    adjncy = np.ascontiguousarray(graph.adjncy, dtype=np.int32)
+    adjwgt = np.ascontiguousarray(graph.edge_weight_array(), dtype=np.int32)
+    out = np.full(graph.n, -1, dtype=np.int32)
+    p = c.kmp_create(b"default", 1)
+    record = {}
+    with counting(counted, torch, record):
+        cut = c.kmp_compute_partition(
+            p, graph.n, xadj.ctypes.data, adjncy.ctypes.data, None,
+            adjwgt.ctypes.data, K_MAIN, 0.03, out.ctypes.data)
+    err = c.kmp_last_error(p)
+    c.kmp_free(p)
+    if cut < 0:
+        fail(f"C ABI in this process: {err!r}")
+    pin("C ABI in this process, cut", cut, EXPECTED_CUTS["medium"])
+    if not np.array_equal(out, expected):
+        fail("C ABI in this process: not phase 5's partition")
+    need("C ABI medium", record, path_kernels)
+    print(json.dumps({"c_abi_in_process": "phase 5's partition",
+                      **record, "card": CARD}), flush=True)
+    return {"medium/C ABI": (record["launches"], record["path_ms"])}
 
 
 def install_event_spy() -> None:

@@ -1,9 +1,9 @@
 """Configuration tree (analog of include/kaminpar-shm/kaminpar.h Context).
 
-Own copy of kaminpar_tpu/context.py (numpy only), without the subtrees of
-the JAX package's dynamic sessions, debug dumps and checkpoints, which
-this package does not run, and without the knobs that neither package
-reads (`forced_kc_level` is kept: the `terapart-largek` preset sets it).
+Own copy of kaminpar_tpu/context.py (numpy only), field for field: the
+knobs that the JAX package accepts for parity with the reference and
+reads nowhere are here too, so that both trees give the same dict, TOML
+dump and checkpoint fingerprint.
 
 The reference models every algorithmic choice as an enum + plain-struct tree
 (Context -> PartitioningContext/CoarseningContext/InitialPartitioningContext/
@@ -96,7 +96,12 @@ class LabelPropagationContext:
     """kaminpar.h LabelPropagationCoarseningContext (+ bulk-sync knobs)."""
 
     num_iterations: int = 5
+    # degree-skew knobs of the reference (label_propagation.h:1939),
+    # accepted for context parity; no device path reads them
+    large_degree_threshold: int = 2**31 - 1
+    max_num_neighbors: int = 2**31 - 1
     two_hop_strategy: TwoHopStrategy = TwoHopStrategy.CLUSTER
+    two_hop_threshold: float = 0.5
     isolated_nodes_strategy: IsolatedNodesStrategy = (
         IsolatedNodesStrategy.MATCH_DURING_TWO_HOP
     )
@@ -174,6 +179,8 @@ class InitialCoarseningContext:
 
     contraction_limit: int = 20
     convergence_threshold: float = 0.05
+    large_degree_threshold: int = 1_000_000
+    cluster_weight_limit: ClusterWeightLimit = ClusterWeightLimit.BLOCK_WEIGHT
     cluster_weight_multiplier: float = 1.0 / 12.0
 
 
@@ -186,6 +193,7 @@ class InitialRefinementContext:
     num_fruitless_moves: int = 100
     alpha: float = 1.0
     num_iterations: int = 5
+    improvement_abortion_threshold: float = 0.0001
 
 
 @dataclass
@@ -269,6 +277,9 @@ class RefinementContext:
     balancer: BalancerContext = field(default_factory=BalancerContext)
     fm: FMRefinementContext = field(default_factory=FMRefinementContext)
 
+    def includes_algorithm(self, algorithm: RefinementAlgorithm) -> bool:
+        return algorithm in self.algorithms
+
 
 @dataclass
 class PartitioningSchemeContext:
@@ -278,6 +289,7 @@ class PartitioningSchemeContext:
     deep_initial_partitioning_mode: InitialPartitioningMode = (
         InitialPartitioningMode.ASYNCHRONOUS_PARALLEL
     )
+    deep_initial_partitioning_load: float = 1.0
     refine_after_extending_partition: bool = False
     # single-round Jet for intermediate k-doubling extensions (another
     # doubling follows immediately): ~13% faster end-to-end for ~0.1%
@@ -310,6 +322,7 @@ class PartitionContext:
     n: int = 0
     m: int = 0
     total_node_weight: int = 0
+    total_edge_weight: int = 0
     max_node_weight: int = 0
     max_block_weights: Optional[np.ndarray] = None  # relaxed
     unrelaxed_max_block_weights: Optional[np.ndarray] = None
@@ -327,6 +340,7 @@ class PartitionContext:
         self.n = graph.n
         self.m = graph.m
         self.total_node_weight = graph.total_node_weight
+        self.total_edge_weight = graph.total_edge_weight
         nw = graph.node_weight_array()
         self.max_node_weight = int(nw.max()) if len(nw) else 0
 
@@ -370,6 +384,18 @@ class PartitionContext:
             return pymath.ceil(self.total_node_weight / self.k)
         return pymath.ceil(
             self.unrelaxed_max_block_weights[block] / (1.0 + self.inferred_epsilon())
+        )
+
+    def setup_min_block_weights(self, min_epsilon: float) -> None:
+        """context.cc:72-81."""
+        self.min_block_weights = np.array(
+            [
+                pymath.ceil(
+                    (1.0 - min_epsilon) * self.perfectly_balanced_block_weight(b)
+                )
+                for b in range(self.k)
+            ],
+            dtype=np.int64,
         )
 
     def total_max_block_weights(self, begin: int, end: int) -> int:
@@ -444,6 +470,46 @@ class ExternalContext:
     spill_dir: str = ""
 
 
+@dataclass
+class DynamicContext:
+    """Dynamic repartitioning policy (dynamic/): a graph that mutates
+    between requests gets a warm-started v-cycle over its previous
+    partition instead of a cold run.  The drift estimate (delta edge mass
+    touching the cut over the total edge mass, plus the balance violation
+    after the patch) picks warm or cold; replicas race the warm run
+    against cold ones and keep the better cut.  Part of the ctx
+    fingerprint: these knobs change the partition."""
+
+    #: drift above this runs a cold repartition instead of the warm one
+    drift_threshold: float = 0.25
+    #: 1 = the drift decision alone; G >= 2 races the warm v-cycle
+    #: against G - 1 cold replicas (seeds varied) and keeps the best
+    #: feasible cut
+    replicas: int = 1
+    #: restricted-coarsening depth of the warm v-cycle (0: refinement of
+    #: the previous partition at the fine level only)
+    warm_levels: int = 0
+    #: the telemetry.diff cut gate across a delta: a warm cut more than
+    #: this fraction above the pre-delta cut escalates to a cold run
+    cut_gate_threshold: float = 0.10
+    #: whether a warm result the gate rejects may escalate at all
+    cold_fallback: bool = True
+
+
+@dataclass
+class DebugContext:
+    """kaminpar.h:484-496: hierarchy dumps (partitioning/debug.py)."""
+
+    graph_name: str = ""
+    dump_toplevel_graph: bool = False
+    dump_toplevel_partition: bool = False
+    dump_coarsest_graph: bool = False
+    dump_coarsest_partition: bool = False
+    dump_graph_hierarchy: bool = False
+    dump_partition_hierarchy: bool = False
+    dump_dir: str = "."
+
+
 def context_to_dict(obj):
     """Context tree (any dataclass tree) -> plain nested dict: enums to
     values, numpy arrays to lists, inf to "inf" (the JAX package's
@@ -486,6 +552,8 @@ class Context:
     )
     resilience: ResilienceContext = field(default_factory=ResilienceContext)
     external: ExternalContext = field(default_factory=ExternalContext)
+    dynamic: DynamicContext = field(default_factory=DynamicContext)
+    debug: DebugContext = field(default_factory=DebugContext)
     seed: int = 0
 
     def copy(self) -> "Context":

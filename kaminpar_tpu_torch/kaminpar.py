@@ -26,7 +26,10 @@ Resilience, as in the JAX package: each call arms a deadline
 stopped), a checkpoint manager (`checkpoint_dir`, `resume`) and the
 memory governor (`memory_budget`), and runs the core partition under the
 integrity retry ladder around the governor's OOM recovery ladder around
-the `compressed-stream` fallback (resilience/).
+the `compressed-stream` fallback (resilience/).  Each call also resets
+the statistics counters and the heap profiler (utils/; both record only
+when enabled) and writes the debug dumps that `ctx.debug` asks for
+(partitioning/debug.py).
 """
 
 from __future__ import annotations
@@ -56,6 +59,7 @@ from .graphs.host import (
     remove_isolated_nodes,
     validate as validate_graph,
 )
+from .partitioning import debug
 from .presets import create_context_by_preset_name
 from .resilience import checkpoint as ckpt_mod
 from .resilience import deadline as deadline_mod
@@ -63,6 +67,7 @@ from .resilience import gate
 from .resilience import integrity as integrity_mod
 from .resilience import memory as mem_mod
 from .resilience.policy import with_fallback
+from .utils import heap_profiler, statistics
 from .utils import rng as rng_mod
 from .utils import timer
 from .utils.logger import (
@@ -201,6 +206,8 @@ class KaMinPar:
         self.last_external = None
 
         timer.GLOBAL_TIMER.reset()
+        heap_profiler.reset()
+        statistics.reset()
         # a run nested in another (an open timer scope) leaves the outer
         # run's telemetry stream alone
         owns_stream = timer.GLOBAL_TIMER.idle()
@@ -232,6 +239,7 @@ class KaMinPar:
             mem_mod.begin_run(graph, ctx, self.device)
         else:
             ckpt_mod.suspend()
+        debug.dump_toplevel_graph(ctx, graph)
         # the logger is process-global; this instance's level holds only
         # while it computes
         prior_level = output_level()
@@ -240,7 +248,8 @@ class KaMinPar:
                              else self._explicit_level)
             if self.output_level >= OutputLevel.APPLICATION:
                 self._print_context_summary(graph, ctx)
-            with timer.scoped_timer("partitioning"):
+            with timer.scoped_timer("partitioning"), \
+                    heap_profiler.scoped_heap_profiler("partitioning"):
                 resumed = (mgr.take_result_resume() if mgr is not None
                            else None)
                 if resumed is not None and resumed.shape == (graph.n,):
@@ -267,6 +276,7 @@ class KaMinPar:
                 telemetry.annotate(output_gate=self.last_gate)
         if owns_stream:
             self._finish_resilience(mgr, partition)
+        debug.dump_toplevel_partition(ctx, partition)
         if self.output_level >= OutputLevel.APPLICATION or (
             telemetry.enabled() and timer.GLOBAL_TIMER.idle()
         ):
@@ -402,9 +412,14 @@ class KaMinPar:
         return part
 
     def _must_decode(self) -> bool:
-        """Whether a compressed input needs the full host CSR: every scheme
-        but the deep one (chunked upload) and the external one (chunked
-        stream) reads host rows."""
+        """Whether a compressed input needs the full host CSR: the debug
+        dumps of the input graph and of every level write host rows, and
+        so does every scheme but the deep one (chunked upload) and the
+        external one (chunked stream)."""
+        d = self.ctx.debug
+        if (d.dump_toplevel_graph or d.dump_toplevel_partition
+                or d.dump_graph_hierarchy):
+            return True
         return self.ctx.partitioning.mode not in (
             PartitioningMode.DEEP, PartitioningMode.EXTERNAL,
         )

@@ -43,6 +43,8 @@ import numpy as np
 from ..context import FMStoppingRule
 from ..graphs.host import HostGraph
 
+BUILD_TIMEOUT_ENV = "KAMINPAR_TPU_NATIVE_BUILD_TIMEOUT"
+DEFAULT_BUILD_TIMEOUT_S = 300.0
 NO_NATIVE_IP_ENV = "KAMINPAR_TPU_NO_NATIVE_IP"
 NO_NATIVE_FM_ENV = "KAMINPAR_TPU_NO_NATIVE_FM"
 SOURCE = Path(__file__).resolve().with_name("ip.cpp")
@@ -73,6 +75,16 @@ _I32, _I64, _F64 = ctypes.c_int32, ctypes.c_int64, ctypes.c_double
 _P_I64 = np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS")
 _P_I32 = np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS")
 _P_U8 = np.ctypeslib.ndpointer(np.uint8, flags="C_CONTIGUOUS")
+
+
+def build_timeout() -> float:
+    """Seconds a native compile may take (KAMINPAR_TPU_NATIVE_BUILD_TIMEOUT,
+    default 300): a hung compiler fails the build instead of the run."""
+    raw = os.environ.get(BUILD_TIMEOUT_ENV, "")
+    try:
+        return float(raw) if raw else DEFAULT_BUILD_TIMEOUT_S
+    except ValueError:
+        return DEFAULT_BUILD_TIMEOUT_S
 
 
 def _lib_path(sources, flags=GXX_FLAGS) -> Path:

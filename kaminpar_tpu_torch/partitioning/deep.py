@@ -11,8 +11,10 @@ preserving block order, so at k == input k the block ids are the final
 ids.  Every coarsening level, the initial partition and every
 uncoarsening level is a checkpoint barrier (resilience/checkpoint.py): it
 offers the level or the partition to an armed manager, honors the
-deadline's wind-down and is where a resume re-enters.  The JAX package's
-quality and debug hooks are not part of this package.  Wall times per
+deadline's wind-down and is where a resume re-enters.  The debug dumps
+(partitioning/debug.py) and the heap profiler's device samples sit where
+the JAX package has them; its quality hooks are not part of this
+package.  Wall times per
 phase land in `timings` (the extension time is also counted inside
 "uncoarsening"), and the (n, m) of every level of the hierarchy, input
 first, in `levels`.
@@ -51,7 +53,9 @@ from ..ops.subgraphs import (
 )
 from ..resilience import checkpoint as ckpt
 from ..resilience import memory as memory_mod
+from ..utils.heap_profiler import sample_device_memory
 from ..utils.rng import host_rng
+from . import debug
 from .base import MultilevelScheme
 from .coarsener import Coarsener, newest_level_snapshot, restore_levels
 from .rb import bipartition_max_block_weights, split_k
@@ -124,6 +128,12 @@ class DeepMultilevelPartitioner(MultilevelScheme):
                 while coarsener.current_n > threshold:
                     if not coarsener.coarsen():
                         break
+                    sample_device_memory()  # per-level live device peak
+                    if ctx.debug.dump_graph_hierarchy:
+                        debug.dump_graph_hierarchy(
+                            ctx, host_graph_from_device(coarsener.current),
+                            coarsener.level,
+                        )
                     if not ckpt.barrier(
                         "coarsen", level=coarsener.level, scheme="deep",
                         payload=lambda: self._ckpt_level_payload(coarsener),
@@ -139,6 +149,7 @@ class DeepMultilevelPartitioner(MultilevelScheme):
         if stage in (None, "coarsen"):
             with self._phase("initial-partitioning"):
                 coarsest_host = host_graph_from_device(coarsener.current)
+                debug.dump_coarsest_graph(ctx, coarsest_host)
                 k0, k1 = split_k(input_k)
                 spans = (
                     [_BlockSpan(0, k0), _BlockSpan(k0, k1)]
@@ -158,6 +169,7 @@ class DeepMultilevelPartitioner(MultilevelScheme):
                     )
                 current_k = len(spans)
                 self._spans = spans
+                debug.dump_coarsest_partition(ctx, part_host)
                 partition = self._pad_partition(
                     part_host, coarsener.current.n_pad
                 )
@@ -172,6 +184,9 @@ class DeepMultilevelPartitioner(MultilevelScheme):
         if num_levels is None:
             num_levels = coarsener.level + 1
 
+        # per-level partition dumps are staged: each level's partition is
+        # cloned on the device and copied to the host after uncoarsening
+        pending_dumps: List[Tuple[int, torch.Tensor, int]] = []
         with self._phase("uncoarsening"):
             level = coarsener.level
             if stage != "uncoarsen":
@@ -188,11 +203,15 @@ class DeepMultilevelPartitioner(MultilevelScheme):
                 )
             while not coarsener.empty():
                 fine_graph, partition = coarsener.uncoarsen(partition)
+                sample_device_memory()  # per-level live device peak
                 level -= 1
                 partition, spans, current_k = self._extend_and_refine(
                     fine_graph, coarsener.current_n, partition, spans,
                     current_k, rng, level, num_levels,
                 )
+                if ctx.debug.dump_partition_hierarchy:
+                    pending_dumps.append(
+                        (level, partition.clone(), coarsener.current_n))
                 part_now, spans_now = partition, spans
                 ckpt.barrier(
                     "uncoarsen", level=level, scheme="deep",
@@ -213,6 +232,9 @@ class DeepMultilevelPartitioner(MultilevelScheme):
                 dgraph, partition, np.asarray(ctx.partition.max_block_weights),
                 where="deep",
             )
+        for dump_level, dump_part, dump_n in pending_dumps:
+            debug.dump_partition_hierarchy(
+                ctx, dump_part[:dump_n].cpu().numpy(), dump_level)
         return partition[: graph.n].cpu().numpy()
 
     # -- checkpoint payloads and restore --------------------------------

@@ -5,8 +5,9 @@ partition the coarsest graph into k blocks on the host by recursive
 bisection, then uncoarsen with the refiner pipeline at k on every level,
 and end with the exact host balance backstop.  Coarsening levels, the
 initial partition and the uncoarsening levels are checkpoint barriers
-(resilience/checkpoint.py), as in the deep scheme.  The JAX package's
-quality hooks are not part of this package.
+(resilience/checkpoint.py), as in the deep scheme, and the debug dumps
+(partitioning/debug.py) sit where the JAX package has them.  Its quality
+hooks are not part of this package.
 """
 
 from __future__ import annotations
@@ -19,6 +20,7 @@ from ..graphs.host import HostGraph
 from ..resilience import checkpoint as ckpt
 from ..resilience import memory as memory_mod
 from ..utils.rng import host_rng
+from . import debug
 from .base import MultilevelScheme
 from .coarsener import Coarsener, newest_level_snapshot, restore_levels
 from .rb import recursive_bipartition
@@ -68,6 +70,11 @@ class KWayMultilevelPartitioner(MultilevelScheme):
                 while coarsener.current_n > threshold:
                     if not coarsener.coarsen():
                         break
+                    if ctx.debug.dump_graph_hierarchy:
+                        debug.dump_graph_hierarchy(
+                            ctx, host_graph_from_device(coarsener.current),
+                            coarsener.level,
+                        )
                     if not ckpt.barrier(
                         "coarsen", level=coarsener.level, scheme="kway",
                         payload=lambda: {
@@ -85,10 +92,11 @@ class KWayMultilevelPartitioner(MultilevelScheme):
         if stage in (None, "coarsen"):
             with self._phase("initial-partitioning"):
                 coarsest_host = host_graph_from_device(coarsener.current)
+                debug.dump_coarsest_graph(ctx, coarsest_host)
+                init_part = recursive_bipartition(coarsest_host, k, ctx, rng)
+                debug.dump_coarsest_partition(ctx, init_part)
                 partition = self._pad_partition(
-                    recursive_bipartition(coarsest_host, k, ctx, rng),
-                    coarsener.current.n_pad,
-                )
+                    init_part, coarsener.current.n_pad)
             num_levels = coarsener.level + 1
             ckpt.barrier(
                 "initial", level=coarsener.level, scheme="kway",
@@ -101,6 +109,8 @@ class KWayMultilevelPartitioner(MultilevelScheme):
             num_levels = coarsener.level + 1
 
         refiner = RefinerPipeline(ctx, k)
+        # per-level partition dumps are staged, as in the deep scheme
+        pending_dumps = []
         with self._phase("uncoarsening"):
             level = coarsener.level
             if stage != "uncoarsen":
@@ -123,6 +133,9 @@ class KWayMultilevelPartitioner(MultilevelScheme):
                     fine_graph, partition, max_bw, min_bw,
                     seed=ctx.seed, level=level, num_levels=num_levels,
                 )
+                if ctx.debug.dump_partition_hierarchy:
+                    pending_dumps.append(
+                        (level, partition.clone(), coarsener.current_n))
                 part_now = partition
                 ckpt.barrier(
                     "uncoarsen", level=level, scheme="kway",
@@ -135,4 +148,7 @@ class KWayMultilevelPartitioner(MultilevelScheme):
                 dgraph, partition, np.asarray(ctx.partition.max_block_weights),
                 where="kway",
             )
+        for dump_level, dump_part, dump_n in pending_dumps:
+            debug.dump_partition_hierarchy(
+                ctx, dump_part[:dump_n].cpu().numpy(), dump_level)
         return partition[: graph.n].cpu().numpy()

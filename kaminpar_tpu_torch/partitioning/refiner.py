@@ -6,7 +6,9 @@ Mt-KaHyPar adapter on the host — plus the exact host balance backstop.
 Each step runs under the degradation contract (`refiner`: a failed step
 rolls back to its input; `device-balancer`: the exact host balancer), the
 integrity sentinels check each pass, and after a deadline no further step
-starts (a `refine-skipped` event).
+starts (a `refine-skipped` event).  With statistics on
+(utils/statistics.py) every step records `runs_<algorithm>` and
+`cut_after_<algorithm>`.
 """
 
 from __future__ import annotations
@@ -31,6 +33,7 @@ from ..resilience import deadline as deadline_mod
 from ..resilience import integrity as integrity_mod
 from ..resilience.faults import maybe_inject
 from ..resilience.policy import with_fallback
+from ..utils import statistics
 from .. import telemetry
 
 
@@ -125,6 +128,12 @@ class RefinerPipeline:
                     site="refiner",
                     where=f"{algorithm.value}@level{level}",
                 )
+            if statistics.enabled():
+                statistics.track(
+                    f"cut_after_{algorithm.value}",
+                    int(metrics.edge_cut(graph, partition)),
+                )
+                statistics.count(f"runs_{algorithm.value}")
         return partition
 
     def _make_step(self, algorithm, graph, k, max_block_weights,

@@ -332,13 +332,13 @@ def note_reload(nbytes: int) -> None:
 
 
 def live_device_bytes(device: Any = None) -> int:
-    """Bytes the caching allocator holds in live tensors on the card (0
-    on the CPU)."""
-    import torch
+    """Bytes the caching allocator holds in live tensors on the card, as
+    the heap profiler reads them (0 for a run on the CPU)."""
+    from ..utils import heap_profiler
 
     if device is None or getattr(device, "type", "cpu") != "cuda":
         return 0
-    return int(torch.cuda.memory_allocated(device))
+    return int(heap_profiler.live_device_bytes())
 
 
 def on_barrier(stage: str) -> None:

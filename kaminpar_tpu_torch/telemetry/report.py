@@ -10,8 +10,11 @@ torch, its CUDA build and the card.
 The resilience sections come from their modules: `faults` (the active
 plan and every injected fault), `checkpoint`, `anytime` and
 `memory_budget` (annotated by the facade), `integrity` (the sentinels'
-counters).  Sections fed by modules this package does not have (serving,
-distributed runs, supervision, dynamic sessions, collectives, request
+counters).  `counters` holds the statistics counters (utils/statistics.py)
+when they are enabled, `heap` the heap profiler's tree when it is, and
+`dynamic` the delta-chain section that a chain's caller annotates
+(dynamic/driver.summarize).  Sections fed by modules this package does
+not have (serving, distributed runs, supervision, collectives, request
 tracing, the execution ledger, the quality observatory) carry the JAX
 package's well-formed disabled defaults.  There is no XLA compile
 step: `compile` is the disabled default and says so, and `perf` holds
@@ -136,7 +139,7 @@ def build_run_report(extra_run: Optional[dict] = None) -> dict:
     Call after `compute_partition` returns (the facade annotates the run
     and result sections during the call); `extra_run` keys are merged into
     the `run` section."""
-    from ..utils import timer
+    from ..utils import heap_profiler, statistics, timer
 
     from ..resilience import faults, integrity
     from ..resilience.errors import CollectiveTimeout
@@ -151,6 +154,9 @@ def build_run_report(extra_run: Optional[dict] = None) -> dict:
     ckpt_summary = info.pop("checkpoint", {"enabled": False})
     anytime = info.pop("anytime", {"anytime": False})
     memory_budget = info.pop("memory_budget", {"enabled": False})
+    # the dynamic-repartitioning audit trail (dynamic/driver.summarize),
+    # annotated by the chain driver's caller
+    dynamic = info.pop("dynamic", {"enabled": False})
     run = dict(info)
     if extra_run:
         run.update({k: jsonable(v) for k, v in extra_run.items()})
@@ -206,7 +212,7 @@ def build_run_report(extra_run: Optional[dict] = None) -> dict:
         "rating": {"levels": rating_levels, "engines": rating_counts},
         "comm": {"caveat": COMM_CAVEAT, "records": []},
         "events": [e.to_dict() for e in _events()],
-        "counters": {},
+        "counters": statistics.as_dict() if statistics.enabled() else {},
         "lane_gather": {"mode": "not-probed", "reason": LANE_GATHER_REASON},
         "faults": faults.plan_summary(),
         "degraded": [e.to_dict() for e in _events("degraded")],
@@ -223,7 +229,7 @@ def build_run_report(extra_run: Optional[dict] = None) -> dict:
         "dist_resilience": {"enabled": False},
         "external": external,
         "supervision": {"enabled": False},
-        "dynamic": {"enabled": False},
+        "dynamic": dynamic,
         "tracing": {"enabled": False, "traces": []},
         "ledger": {"enabled": False,
                    "caveat": "execution ledger unavailable"},
@@ -231,6 +237,8 @@ def build_run_report(extra_run: Optional[dict] = None) -> dict:
     }
     if timers_aggregated is not None:
         report["timers_aggregated"] = timers_aggregated
+    if heap_profiler.profiling_enabled():
+        report["heap"] = heap_profiler.tree_dict()
     return report
 
 

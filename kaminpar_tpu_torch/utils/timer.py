@@ -100,6 +100,12 @@ class Timer:
                 )
             self._stack.pop()
 
+    def unwind(self) -> int:
+        """Close every open scope (the CLI's interrupt path, so that an
+        emergency report's scope tree is whole).  Returns the number
+        closed."""
+        return self.unwind_to(1)
+
     def unwind_to(self, depth: int) -> int:
         """Close open scopes until the stack holds ``depth`` entries (the
         memory governor's per-rung unwind); their time so far is not
@@ -117,6 +123,38 @@ class Timer:
                 return 0.0
             node = node.children[name]
         return node.elapsed
+
+
+    def render(self) -> str:
+        """The tree, one indented `name: seconds` line per scope (the
+        CLI's -T)."""
+        lines = []
+
+        def rec(node: TimerNode, depth: int) -> None:
+            if depth > 0:
+                lines.append(
+                    f"{'  ' * depth}{node.name}: {node.elapsed:.4f} s"
+                    + (f" ({node.count}x)" if node.count > 1 else "")
+                )
+            for child in node.children.values():
+                rec(child, depth + 1)
+
+        rec(self.root, 0)
+        return "\n".join(lines)
+
+    def render_machine(self) -> str:
+        """One line of dotted-path=seconds pairs (the CLI's
+        --machine-timers; kaminpar-common/timer.h:135)."""
+        parts = []
+
+        def rec(node: TimerNode, path: str) -> None:
+            for child in node.children.values():
+                child_path = f"{path}.{child.name}" if path else child.name
+                parts.append(f"{child_path}={child.elapsed:.6f}")
+                rec(child, child_path)
+
+        rec(self.root, "")
+        return " ".join(parts)
 
 
 GLOBAL_TIMER = Timer()

@@ -86,6 +86,31 @@ def test_scan_covers_the_resilience_modules(module):
     test_scan_covers_the_file_io_and_telemetry_modules(module)
 
 
+@pytest.mark.parametrize("module", [
+    "dynamic/__init__.py", "dynamic/session.py", "dynamic/repartition.py",
+    "dynamic/driver.py", "cli.py", "tools.py", "capi.py",
+    "native/build_capi.py", "bindings/__init__.py", "bindings/networkit.py",
+    "partitioning/debug.py", "utils/statistics.py",
+    "utils/heap_profiler.py", "graphs/factories.py",
+])
+def test_scan_covers_the_command_line_and_dynamic_modules(module):
+    """The modules of the dynamic sessions, the command lines and the
+    bindings are in the scan: each imports, and imports neither JAX nor
+    the JAX package."""
+    test_scan_covers_the_file_io_and_telemetry_modules(module)
+
+
+def test_entry_points_name_the_port():
+    """`python -m kaminpar_tpu_torch` runs the port's CLI, and the C ABI's
+    embedded interpreter imports the port's capi module."""
+    main = PACKAGE / "__main__.py"
+    assert not {root for root, _ in _imported_roots(main)} & set(FORBIDDEN)
+    assert "from .cli import main" in main.read_text()
+    cpp = (PACKAGE / "native" / "ckaminpar.cpp").read_text()
+    assert 'PyImport_ImportModule("kaminpar_tpu_torch.capi")' in cpp
+    assert '"kaminpar_tpu.capi"' not in cpp
+
+
 def test_port_schema_is_a_copy_of_the_jax_schema():
     """The run-report schema differs from the JAX package's only in its
     comment, the environment stamp and the perf section's kernel table."""

@@ -1,6 +1,6 @@
 """The presets: every preset's context equals the JAX package's field by
-field (compared as nested dicts, the port's fields only; the fields it
-lacks are test_torch_schemes.JAX_ONLY), the `terapart*` presets switch
+field (compared as nested dicts; test_torch_schemes.JAX_ONLY, the fields
+the port lacks, is empty), the `terapart*` presets switch
 on compressed-graph mode, and `strong` (native FM), `fast` and
 `noref` partition bitwise as the JAX package does on
 make_rmat(1 << 12, 30_000, seed=3) at k=8.  The other presets' end-to-end

@@ -29,21 +29,10 @@ CASES = {
     "rgg-k4": (lambda: jfactories.make_rgg2d(1 << 12, seed=1), 4),
 }
 
-# fields of the JAX package's context that the port does not have: the
-# subtrees of dynamic sessions and debug dumps, and knobs that the JAX
-# package accepts for parity with the reference and reads nowhere
-JAX_ONLY = {
-    "dynamic", "debug",
-    "coarsening.clustering.lp.large_degree_threshold",
-    "coarsening.clustering.lp.max_num_neighbors",
-    "coarsening.clustering.lp.two_hop_threshold",
-    "initial_partitioning.coarsening.large_degree_threshold",
-    "initial_partitioning.coarsening.cluster_weight_limit",
-    "initial_partitioning.refinement.improvement_abortion_threshold",
-    "initial_partitioning.pool.refinement.improvement_abortion_threshold",
-    "partitioning.deep_initial_partitioning_load",
-    "partition.total_edge_weight",
-}
+# fields of the JAX package's context that the port does not have: none,
+# the two trees are level (the dynamic and debug subtrees and the knobs
+# both packages accept for parity with the reference included)
+JAX_ONLY = set()
 
 
 def split_jax_dict(data, port=None, path=""):
@@ -65,9 +54,12 @@ def split_jax_dict(data, port=None, path=""):
 
 
 def port_context(jax_ctx):
-    kept, dropped = split_jax_dict(jax_context_to_dict(jax_ctx))
+    data = jax_context_to_dict(jax_ctx)
+    kept, dropped = split_jax_dict(data)
     assert dropped == JAX_ONLY
-    return context_from_dict(kept)
+    ctx = context_from_dict(kept)
+    assert context_to_dict(ctx) == data
+    return ctx
 
 
 def run_preset(preset, host, k, configure=None, seed=1):
@@ -149,9 +141,10 @@ def test_external_scheme_raises(monkeypatch):
 
 def test_context_from_dict_raises_on_a_field_the_port_lacks():
     data = jax_context_to_dict(jax_preset("default"))
-    with pytest.raises(ValueError, match="has no field"):
-        context_from_dict(data)
+    # the trees are level: the JAX package's whole dict converts
+    assert context_to_dict(context_from_dict(data)) == data
     kept, _ = split_jax_dict(data)
+    assert kept == data
     kept["coarsening"]["no_such_knob"] = 1
     with pytest.raises(ValueError, match="coarsening.no_such_knob"):
         context_from_dict(kept)
