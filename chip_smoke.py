@@ -20,7 +20,11 @@ Phases, each fatal on failure:
      cap and at INT32_MAX, at num_slots 4 (contested rows), on hub rows
      of 45k edges and on delta spans cut at the buffer, and it is timed
      beside the torch chain it replaces (scatter_slot_ratings, then the
-     standalone K3);
+     standalone K3); at the dist path's shapes (shard 0 of the medium
+     graph on 8 shards, the first LP round), the standalone K3 with
+     `label_range=` and with `communities=` and K2 over the shard's spans
+     with its owned-plus-ghost label table, each bitwise against its twin
+     with rows whose winner the mask changes, and timed beside its bound;
   4. partition make_rmat(1<<14, 120_000, seed=3) at k=8 on the CPU and on
      the card: the two partitions must be bitwise equal, and both must
      have run the native initial bipartitioner;
@@ -156,16 +160,35 @@ Phases, each fatal on failure:
      run, the C program partitioning the medium CSR from a second thread
      (cut 250,236, phase 5's partition), and kmp_compute_partition
      called in this process through ctypes for its launch counts.
-  Phases 5, 7b, 8b and 9b fail on any degradation, rung, spill,
-     wind-down or integrity-violation event (run_main);
+  12a. the distributed partitioner at n = 2^14, k=8, on the CPU and on
+     the card, each pair bitwise equal: kp.parallel.dKaMinPar("default")
+     on D = 1, 2 and 8 shards and on a (2, 4) grid, `lp_rating="scatter"`
+     and local-lp clustering with it (D = 8), the forced sharded
+     contraction; `strong` (Jet), `cluster-balancer` and HEM + LP
+     clustering at n = 2^12 and `colored-lp` on a 64x64 grid, on 2
+     shards; then on the card a hard
+     stop at dist-uncoarsen:0 (D = 2)
+     and its resume, and `python -m kaminpar_tpu_torch.dcli` at D = 8 (in
+     this process) giving the facade's partition;
+  12b. dKaMinPar on 8 shards of the card at full width, k=16, eps=0.03,
+     seed=1: `default` on large and on medium, medium with the scatter
+     engine and with local-lp + scatter (the only cell that passes
+     label_range= to the standalone K3), each cut pinned to the JAX
+     package's CPU run on 8 devices (EXPECTED_DIST_CUTS), K1 and K2
+     launched in every cell and the standalone K3 in the two scatter
+     cells, each counted from zero; prints the walls per phase, the
+     levels, the first level's per-shard edges and the peak allocation.
+  Phases 5, 7b, 8b, 9b and 12b fail on any degradation, rung, spill,
+     wind-down or integrity-violation event;
   6. print the per-kernel JSON line, then the final status line.
 
 The rating engine is chosen per level from the graph's density: the large
 graph (average degree 33 > 32 slots) takes the sort2 engine at every
 level and never reaches K3, the medium graph (average degree 26) takes
 the scatter engine, which is the fused K3.  So the main path is both
-graphs.  The standalone K3 (the table's arg-max alone) is no longer on
-it: it is checked and timed in phase 3 and shows 0 launches.
+graphs.  The standalone K3 (the table's arg-max alone) runs on the dist
+path's scatter engine (phase 12b), whose sharded layout has no row spans
+for the fused kernel; its `launches` in the JSON line are phase 12b's.
 
 Takes no arguments.  Exits non-zero without a result when CUDA is
 unavailable or the package is missing.
@@ -178,6 +201,7 @@ import hashlib
 import json
 import os
 import shutil
+import signal
 import statistics
 import subprocess
 import sys
@@ -252,6 +276,16 @@ EXPECTED_LARGE_RUNG1 = (
     2_980_700,
     "6b4603766dec9ffb1161bd36affbb5abd5e3f56963cc24be7ba143712b855ab8",
 )
+# the dist path (phase 12b), k=16, eps=0.03, seed=1, 8 shards: the cuts of
+# the JAX package's CPU runs on 8 virtual devices (PERF.md section 4 gives
+# the command); (graph, variant) -> cut
+EXPECTED_DIST_CUTS = {
+    ("large", "default"): 8_066_073,
+    ("medium", "default"): 480_323,
+    ("medium", "scatter"): 483_412,
+    ("medium", "local-lp"): 468_121,
+}
+DIST_SHARDS = 8
 # the card's name and power limit as nvidia-smi prints them, stamped on
 # every load time and wall of phases 9 and 10
 CARD = None
@@ -509,6 +543,12 @@ def main() -> None:
     # engine's first round: every node its own cluster)
     kernels += check_k3(graphs["medium"][1], kp, gather, rating, segments,
                         Coarsener, device_graph_from_host, rng, dev, torch)
+    # the standalone K3 with its masks and K2 with a ghost table, at the
+    # dist path's shard shapes
+    dist_fields = check_dist_kernels(graphs["medium"][0], kp, gather, rating,
+                                     dev, torch)
+    for entry in kernels:
+        entry.update(dist_fields.get(entry["name"], {}))
     torch.cuda.empty_cache()
     print(json.dumps({"kernel_checks": "ok"}), flush=True)
 
@@ -650,14 +690,35 @@ def main() -> None:
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
+    # -- 12. the distributed partitioner
+    print(json.dumps({"phase_12_at_s": round(time.perf_counter() - T_START,
+                                             1)}), flush=True)
+    tmp = tempfile.mkdtemp(prefix="kp-smoke-dist-")
+    try:
+        check_dist_parity(g_small, kp, torch, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    dist_runs = run_dist_paths(graphs, kp, counted, dev, torch)
+    slice_runs.update(dist_runs)
+    dist_launches = {fn.__name__: sum(r[fn.__name__]
+                                      for r, _ in dist_runs.values())
+                     for fn in counted}
+
     for entry in kernels:
-        entry["launches"] = launches[entry["name"]]
-        entry["path_ms"] = path_ms[entry["name"]]
+        name = entry["name"]
+        # the shared-memory main path (phase 5) for the kernels it runs;
+        # the standalone K3 runs only on the dist path (phase 12b)
+        if launches[name] > 0:
+            entry["launches"] = launches[name]
+            entry["launches_from"] = "phase 5"
+        else:
+            entry["launches"] = dist_launches[name]
+            entry["launches_from"] = "phase 12b"
+        entry["path_ms"] = path_ms[name]
         for run, (run_launches, run_ms) in slice_runs.items():
-            entry.setdefault("path_launches", {})[run] = (
-                run_launches[entry["name"]])
-            entry["path_ms"][run] = run_ms.get(entry["name"], 0.0)
-        entry["on_path"] = entry["name"] != "best_from_slots"
+            entry.setdefault("path_launches", {})[run] = run_launches[name]
+            entry["path_ms"][run] = run_ms.get(name, 0.0)
+        entry["on_path"] = entry["launches"] > 0
         entry["ok"] = True
         if entry["name"] == "scatter_best_from_slots":
             entry["communities"] = communities
@@ -2494,6 +2555,303 @@ def c_abi_in_process(lib, graph, expected, counted, path_kernels,
     print(json.dumps({"c_abi_in_process": "phase 5's partition",
                       **record, "card": CARD}), flush=True)
     return {"medium/C ABI": (record["launches"], record["path_ms"])}
+
+
+# ---------------------------------------------------------------------------
+# phase 12: the distributed partitioner
+# ---------------------------------------------------------------------------
+
+# the dist variants of phases 12a-b: (preset, lp_rating, clustering) of
+# the DistContext; local-lp with the scatter engine is the one that passes
+# label_range= to the standalone K3
+DIST_VARIANTS = {
+    "default": ("default", None, None),
+    "scatter": ("default", "scatter", None),
+    "local-lp": ("default", "scatter", "local-lp"),
+    "strong": ("strong", None, None),
+    "colored-lp": ("colored-lp", None, None),
+    "cluster-balancer": ("cluster-balancer", None, None),
+    "hem-lp": ("default", None, "global-hem-lp"),
+}
+
+
+def dist_solver(kp, D, variant, device):
+    """dKaMinPar on D shards of `device`, with the variant's preset,
+    rating engine and clusterer."""
+    from kaminpar_tpu_torch.parallel.dist_context import (
+        DistClusteringAlgorithm,
+    )
+
+    preset, lp_rating, clustering = DIST_VARIANTS[variant]
+    solver = kp.parallel.dKaMinPar(preset, n_devices=D, device=device)
+    if lp_rating is not None:
+        solver.ctx.lp_rating = lp_rating
+    if clustering is not None:
+        solver.ctx.clustering = DistClusteringAlgorithm(clustering)
+    return solver
+
+
+def check_dist_kernels(graph, kp, gather, rating, dev, torch) -> dict:
+    """Phase 3 at the dist path's shapes: shard 0 (the heaviest) of the
+    medium graph on 8 shards in the first LP round (every node its own
+    cluster): the standalone K3 on the shard's scatter slot table (rows
+    n_loc, labels global) with label_range= (local-lp's) and with
+    communities=, and K2 over the shard's CSR spans with the
+    ghost-extended label table, each bitwise against its twin on the same
+    CUDA tensors, with rows whose winner the mask changes, and timed
+    beside its bound.  Returns the fields each kernel's entry gets."""
+    mesh = kp.parallel.make_mesh(DIST_SHARDS, device=dev)
+    dg = kp.parallel.dist_graph_from_host(graph, mesh)
+    sh = dg.shard(0)
+    n_loc, g_loc, C = dg.n_loc, dg.g_loc, dg.n_pad
+    ids = torch.arange(C, dtype=torch.int32, device=dev)
+    lab_tab = torch.cat([ids[:n_loc], ids[sh.ghost_gid.long()]])
+    dstloc = sh.dst_local.clamp(0, n_loc + g_loc - 1)
+    seg = sh.src - sh.offset
+    nb = gather.gather_i32(lab_tab, dstloc)
+    from kaminpar_tpu_torch.ops.lp import LPConfig
+
+    num_slots, salt = LPConfig().num_slots, 12345
+    sl, sw, _ = rating.scatter_slot_ratings(
+        seg.clamp(0, n_loc - 1), nb, sh.edge_w, n_loc, num_slots, salt,
+        valid=(seg >= 0) & (seg < n_loc), label_space=C)
+    cap = torch.full((C,), 64, dtype=torch.int32, device=dev)
+    args = (sl, sw, lab_tab[:n_loc].contiguous(), dg.node_w, sh.node_w,
+            cap, salt)
+    comm = (torch.arange(n_loc, dtype=torch.int32, device=dev) * 7) % 16
+    ranged = {"label_range": (sh.offset, sh.offset + n_loc)}
+    cases = {"label_range": ranged, "communities": {"communities": comm},
+             "both": dict(ranged, communities=comm)}
+    plain = rating.best_from_slots(*args)[0]
+    changed, err = {}, 0
+    for what, kw in cases.items():
+        out = rating.best_from_slots(*args, **kw)
+        ref = rating.best_from_slots_twin(*args, **kw)
+        torch.cuda.synchronize()
+        for x, y in zip(out, ref):
+            if not torch.equal(x, y):
+                fail(f"K3 with {what} disagrees with its twin at the dist "
+                     "shard shapes")
+            err = max(err, max_abs_err(x, y))
+        changed[what] = int((out[0] != plain).sum())
+        if changed[what] == 0:
+            fail(f"K3 {what} check is blind: the mask changed no winner")
+    rows, S = sl.shape
+    b, by = bound_ms(8 * rows * S + 16 * rows + 12 * rows, 16 * rows * S)
+    ms, _, ms_by = device_ms(
+        lambda: rating.best_from_slots(*args, **ranged), torch)
+    k3 = {"dist": {
+        "shape": {"graph": "medium", "shards": DIST_SHARDS, "shard": 0,
+                  "rows": rows, "slots": S, "labels": C},
+        "masked_rows": changed, "max_abs_err": err,
+        "ms": ms, "ms_by": ms_by,
+        "unmasked_ms": device_ms(lambda: rating.best_from_slots(*args),
+                                 torch)[0],
+        "plain_ms": time_ms(
+            lambda: rating.best_from_slots_twin(*args, **ranged), torch),
+        "bound_ms": b, "bound_by": by,
+    }}
+    # K2: a 16-block table over the shard's spans, labels owned + ghosts
+    part_tab = ((lab_tab * 5) % K_MAIN).to(torch.int32)
+    m_shard = int(sh.row_end[-1])
+    args2 = (sh.row_start, sh.row_end, dstloc, sh.edge_w, part_tab, n_loc,
+             K_MAIN)
+    out = gather.dense_block_ratings(*args2)
+    ref = gather.dense_block_ratings_twin(*args2)
+    torch.cuda.synchronize()
+    if not torch.equal(out, ref):
+        fail("K2 with a ghost-extended label table disagrees with its twin")
+    b2, by2 = bound_ms(8 * n_loc + 8 * m_shard + 4 * (n_loc + g_loc)
+                       + 4 * n_loc * K_MAIN, m_shard)
+    ms2, _, ms2_by = device_ms(lambda: gather.dense_block_ratings(*args2),
+                               torch)
+    k2 = {"dist": {
+        "shape": {"graph": "medium", "shards": DIST_SHARDS, "shard": 0,
+                  "rows": n_loc, "labels": n_loc + g_loc, "edges": m_shard,
+                  "k": K_MAIN},
+        "max_abs_err": max_abs_err(out, ref),
+        "ms": ms2, "ms_by": ms2_by,
+        "plain_ms": time_ms(
+            lambda: gather.dense_block_ratings_twin(*args2), torch),
+        "bound_ms": b2, "bound_by": by2,
+    }}
+    print(json.dumps({"dist_kernel_checks": "ok", "k3_masked_rows": changed,
+                      "shard_edges": m_shard, "n_loc": n_loc,
+                      "g_loc": g_loc}), flush=True)
+    return {"best_from_slots": k3, "dense_block_ratings": k2}
+
+
+def check_dist_parity(g_small, kp, torch, tmp) -> None:
+    """Phase 12a: the parity graph at k=8 on the CPU and on the card, each
+    pair bitwise equal: `default` at D = 1, 2, 8 and on a (2, 4) grid, the
+    scatter engine and local-lp (D = 8), the forced sharded contraction,
+    and on 2 shards `strong`, `cluster-balancer` and HEM + LP clustering
+    at n = 2^12 and `colored-lp` on a 64x64 grid; then on the card a hard
+    stop at dist-uncoarsen:0 (D = 2, where the
+    input is not replicated) and its resume, giving the card's D = 2
+    partition, and the dcli at D = 8, giving the card's D = 8 partition."""
+    from kaminpar_tpu_torch import dcli
+    from kaminpar_tpu_torch.io.metis import write_metis
+    from kaminpar_tpu_torch.parallel import dist_partitioner as tdp
+    from kaminpar_tpu_torch.resilience.checkpoint import SimulatedPreemption
+
+    real_contract = tdp.dist_contract_clustering
+    real_limit = tdp.MAX_FUSED_EDGE_SLOTS
+    sharded = []
+
+    def spy(*a, **kw):
+        sharded.append(1)
+        return real_contract(*a, **kw)
+
+    cases = [("default", 1), ("default", 2), ("default", 8),
+             ("default", (2, 4)), ("scatter", 8), ("local-lp", 8),
+             ("sharded-contraction", 8)]
+    card = {}
+    for variant, D in cases:
+        parts = {}
+        for device in ("cpu", "cuda"):
+            forced = variant == "sharded-contraction"
+            solver = dist_solver(kp, D, "default" if forced else variant,
+                                 device)
+            t0 = time.perf_counter()
+            if forced:
+                tdp.MAX_FUSED_EDGE_SLOTS = 0
+                tdp.dist_contract_clustering = spy
+            try:
+                parts[device] = solver.set_graph(g_small).compute_partition(
+                    k=8, epsilon=0.03, seed=1)
+            finally:
+                tdp.MAX_FUSED_EDGE_SLOTS = real_limit
+                tdp.dist_contract_clustering = real_contract
+            print(json.dumps({
+                "dist_small": variant, "shards": D, "device": device,
+                "replicated": solver._replication_info is not None,
+                "wall_s": round(time.perf_counter() - t0, 3)}), flush=True)
+        if not np.array_equal(parts["cpu"], parts["cuda"]):
+            fail(f"dist n=2^14 {variant} D={D}: CPU and CUDA partitions "
+                 f"differ in {int((parts['cpu'] != parts['cuda']).sum())} "
+                 "nodes")
+        card[(variant, D)] = parts["cuda"]
+    if not sharded:
+        fail("dist n=2^14: the forced sharded contraction never ran")
+    # the other refiners and clusterers (Jet, colored LP, the cluster
+    # balancer, HEM + LP) at n = 2^12 on 2 shards; colored LP on a 64x64
+    # grid, whose few colors keep its supersteps (colors x iterations)
+    # short
+    g_tiny = kp.make_rmat(1 << 12, 32_000, seed=3)
+    g_grid = kp.graphs.factories.make_grid_graph(64, 64)
+    for variant in ("strong", "colored-lp", "cluster-balancer", "hem-lp"):
+        parts = {}
+        graph = g_grid if variant == "colored-lp" else g_tiny
+        for device in ("cpu", "cuda"):
+            t0 = time.perf_counter()
+            parts[device] = dist_solver(kp, 2, variant, device).set_graph(
+                graph).compute_partition(k=8, epsilon=0.03, seed=1)
+            print(json.dumps({
+                "dist_tiny": variant, "shards": 2, "device": device,
+                "wall_s": round(time.perf_counter() - t0, 3)}), flush=True)
+        if not np.array_equal(parts["cpu"], parts["cuda"]):
+            fail(f"dist n=2^12 {variant}: CPU and CUDA partitions differ")
+    # kill and resume on the card
+    ckpt = os.path.join(tmp, "dist-ckpt")
+    solver = dist_solver(kp, 2, "default", "cuda")
+    solver.ctx.shm.resilience.checkpoint_dir = ckpt
+    try:
+        with env_scope({"KAMINPAR_TPU_STOP_AT": "dist-uncoarsen:0!"}):
+            solver.set_graph(g_small).compute_partition(k=8, epsilon=0.03,
+                                                        seed=1)
+        fail("dist: the hard stop at dist-uncoarsen:0 never fired")
+    except SimulatedPreemption:
+        pass
+    RESILIENCE_EVENTS.clear()
+    solver = dist_solver(kp, 2, "default", "cuda")
+    solver.ctx.shm.resilience.checkpoint_dir = ckpt
+    solver.ctx.shm.resilience.resume = True
+    resumed = solver.set_graph(g_small).compute_partition(k=8, epsilon=0.03,
+                                                          seed=1)
+    if not any(n == "resume" for n, _ in RESILIENCE_EVENTS):
+        fail("dist: the resumed run restored nothing")
+    if not np.array_equal(resumed, card[("default", 2)]):
+        fail("dist: the resumed partition is not the uninterrupted one")
+    ref = card[("default", 8)]
+    # the dcli on the card
+    path, out = os.path.join(tmp, "small.metis"), os.path.join(tmp, "p.txt")
+    write_metis(g_small, path)
+    handlers = {s: signal.getsignal(s) for s in (signal.SIGINT,
+                                                 signal.SIGTERM)}
+    try:
+        rc = dcli.main([path, "-k", "8", "-n", "8", "-s", "1", "-q",
+                        "-o", out])
+    finally:
+        for sig, h in handlers.items():
+            signal.signal(sig, h)
+    if rc != 0 or not np.array_equal(np.loadtxt(out, dtype=np.int64), ref):
+        fail("dist: the dcli's partition is not the facade's")
+    print(json.dumps({"dist_small_parity": "bitwise-equal",
+                      "cases": [f"{v}/{d}" for v, d in cases]
+                      + ["strong", "colored-lp", "cluster-balancer",
+                         "hem-lp"],
+                      "resume": "dist-uncoarsen:0 (D=2)", "dcli": "D=8"}),
+          flush=True)
+
+
+def run_dist_paths(graphs, kp, counted, dev, torch) -> dict:
+    """Phase 12b: dKaMinPar on 8 shards of the card at full width, k=16,
+    one run per cell of EXPECTED_DIST_CUTS, each counted from zero: the
+    cut pinned to the JAX package's, the partition in range and within
+    the caps, K1 and K2 launched in every cell and the standalone K3 in
+    the scatter cells; prints the walls per phase, the levels' per-shard
+    edge counts and the peak allocation."""
+    from kaminpar_tpu_torch.ops import gather, rating
+
+    runs = {}
+    for (cell, variant), expected in EXPECTED_DIST_CUTS.items():
+        graph = graphs[cell][0]
+        record = {}
+        RESILIENCE_EVENTS.clear()
+        solver = dist_solver(kp, DIST_SHARDS, variant, "cuda")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        with counting(counted, torch, record):
+            t0 = time.perf_counter()
+            part = solver.set_graph(graph).compute_partition(
+                k=K_MAIN, epsilon=0.03, seed=1)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        if loud_events():
+            fail(f"dist {cell}/{variant}: events {loud_events()[:3]}")
+        if part.shape != (graph.n,) or part.min() < 0 or (
+                part.max() >= K_MAIN):
+            fail(f"dist {cell}/{variant}: partition out of range")
+        bw = np.bincount(part, weights=graph.node_weight_array(),
+                         minlength=K_MAIN).astype(np.int64)
+        caps = np.asarray(solver.ctx.partition.unrelaxed_max_block_weights)
+        if (bw > caps).any():
+            fail(f"dist {cell}/{variant}: block weights over the caps")
+        src = graph.edge_sources()
+        cut = int(graph.edge_weight_array()[
+            part[src] != part[graph.adjncy]].sum() // 2)
+        pin(f"dist {cell}/{variant} cut", cut, expected)
+        need(f"dist {cell}/{variant}", record,
+             (gather.gather_i32, gather.dense_block_ratings)
+             + ((rating.best_from_slots,) if variant != "default" else ()))
+        perfect = -(-graph.total_node_weight // K_MAIN)
+        print(json.dumps({
+            "dist_path": f"{cell}/{variant}", "shards": DIST_SHARDS,
+            "pinned": expected, "cut": cut,
+            "imbalance": float(bw.max() / perfect - 1.0),
+            "wall_s": wall, "phase_s": solver.last_timings,
+            "replication": solver._replication_info,
+            "levels": [(lv["n"], lv["m"]) for lv in solver.last_levels],
+            "shard_edges": solver.last_levels[0]["shard_edges"],
+            "peak_bytes": peak, "launches": record["launches"],
+            "path_ms": record["path_ms"],
+            "at_s": round(time.perf_counter() - T_START, 1), "card": CARD,
+        }), flush=True)
+        runs[f"dist/{cell}/{variant}"] = (record["launches"],
+                                          record["path_ms"])
+    return runs
 
 
 def install_event_spy() -> None:

@@ -18,6 +18,7 @@ from .graphs.factories import make_rgg2d, make_rmat  # noqa: F401
 from .graphs.host import HostGraph  # noqa: F401
 from .io import load_graph  # noqa: F401
 from .kaminpar import KaMinPar, context_from_preset  # noqa: F401
+from . import parallel  # noqa: F401,E402
 
 __all__ = [
     "Context",
@@ -27,4 +28,5 @@ __all__ = [
     "load_graph",
     "make_rgg2d",
     "make_rmat",
+    "parallel",
 ]

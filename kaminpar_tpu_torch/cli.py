@@ -375,13 +375,18 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument(
         "--debug-dump-dir", default=None, help="directory for debug dumps"
     )
+    mark_waiting_flags(p)
+    return p
+
+
+def mark_waiting_flags(parser: argparse.ArgumentParser) -> None:
+    """Note in each waiting flag's help that it exits 2, and why."""
     waiting = {dest: module for dest, _, module in WAITING_FLAGS}
-    for action in p._actions:
+    for action in parser._actions:
         if action.dest in waiting:
             action.help += (
                 f" [needs kaminpar_tpu_torch/{waiting[action.dest]}, not "
                 "ported yet: exits 2]")
-    return p
 
 
 def make_context(args: argparse.Namespace) -> Context:
@@ -437,7 +442,8 @@ def make_context(args: argparse.Namespace) -> Context:
 
 def waiting_flag_error(args: argparse.Namespace) -> Optional[str]:
     """The error for a flag (or its environment variable) whose module
-    this package does not have yet; None when none is used."""
+    this package does not have yet; None when none is used (the dcli's
+    parser has a subset of the flags)."""
     for dest, flag, module in WAITING_FLAGS:
         if getattr(args, dest, None) is not None:
             return _waiting(flag, module)

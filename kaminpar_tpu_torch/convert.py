@@ -16,7 +16,9 @@ The arrays must already follow the padded layout of ``graphs/csr.py``
 ``context_from_dict`` builds this package's Context from the nested dict
 of plain values that the JAX package's ``context_to_dict`` gives, so that
 both packages can be configured from one source.  A warm-start partition
-is a numpy array and crosses as it is.
+is a numpy array and crosses as it is.  ``dist_graph_from_arrays`` builds
+a sharded graph (parallel/dist_graph.py) from the JAX package's
+DistGraph fields.
 """
 
 from __future__ import annotations
@@ -86,3 +88,37 @@ def _apply(node: Any, data: Dict[str, Any], path: str) -> None:
             setattr(node, key, value)
         else:
             setattr(node, key, type(current)(value))
+
+
+def dist_graph_from_arrays(fields: dict, mesh: Mesh) -> DistGraph:
+    """A DistGraph from the JAX package's field arrays (as numpy: src,
+    dst, edge_w, node_w, n, m, dst_local, ghost_gid, send_idx,
+    recv_map) on `mesh`, so that both packages can be handed one shard
+    layout; row_ptr is recovered from the shards' real edges (every real
+    edge precedes the pads, and no real edge ends at the pad node)."""
+    from .parallel.dist_graph import DistGraph
+
+    D = mesh.size
+    a = {k: np.asarray(v) for k, v in fields.items()}
+    n_pad = a["node_w"].shape[0]
+    n_loc, m_loc = n_pad // D, a["src"].shape[0] // D
+    src_t = a["src"].reshape(D, m_loc)
+    dst_t = a["dst"].reshape(D, m_loc)
+    rp_t = np.zeros((D, n_loc + 1), dtype=np.int32)
+    for d in range(D):
+        c = int((dst_t[d] != n_pad - 1).sum())
+        deg = np.bincount(src_t[d, :c] - d * n_loc, minlength=n_loc)
+        rp_t[d, 1:] = np.cumsum(deg[:n_loc])
+    dev = mesh.device
+
+    def t(name):
+        return torch.from_numpy(
+            np.ascontiguousarray(a[name].astype(np.int32))).to(dev)
+
+    return DistGraph(
+        src=t("src"), dst=t("dst"), edge_w=t("edge_w"), node_w=t("node_w"),
+        n=int(a["n"]), m=int(a["m"]), dst_local=t("dst_local"),
+        ghost_gid=t("ghost_gid"), send_idx=t("send_idx"),
+        recv_map=t("recv_map"),
+        row_ptr=torch.from_numpy(rp_t.reshape(-1)).to(dev), mesh=mesh,
+    )

@@ -16,6 +16,11 @@
 // that reduction for one row, by one warp; every kernel below uses it.
 //
 // Standalone (kp_best_from_slots): the table comes from device memory.
+// It takes the same communities restriction as the fused kernel (below)
+// and a label range: with has_range, a label l is feasible only where
+// lo <= l < hi (the dist path's local-lp clusterer, which joins only
+// clusters led by a node of its own shard); w_own does not depend on
+// either mask.
 // Bound on the H100: bytes.  The two slot tables (n_pad * S * 8 bytes)
 // are read once; the cluster-weight lookups hit L2.  Design: one warp per
 // row, each lane strides over the S = 2 * num_slots slots with coalesced
@@ -106,6 +111,9 @@ struct RowArgmax {
   const int32_t* __restrict__ comm = nullptr;
   int n = 0;
   int32_t own_comm = 0;
+  // label range: with has_range, only labels in [lo, hi) are feasible
+  int has_range = 0;
+  int32_t lo = 0, hi = 0;
   int32_t w_own = 0, bw = KP_INT32_MIN, bh = -1, bl = -1;
 
   __device__ __forceinline__ RowArgmax(int32_t own_, int32_t nw_,
@@ -118,6 +126,7 @@ struct RowArgmax {
   __device__ __forceinline__ void add(int32_t lab, int32_t w) {
     if (lab == own && w > w_own) w_own = w;
     bool feas = lab >= 0 && lab != own;
+    if (feas && has_range) feas = lab >= lo && lab < hi;
     if (feas && require_fit) {
       const int32_t c = lab >= C ? C - 1 : lab;
       const int32_t sum = (int32_t)((uint32_t)__ldg(cw + c) + (uint32_t)nw);
@@ -185,16 +194,25 @@ __global__ void best_from_slots_kernel(
     const int32_t* __restrict__ node_w, const int32_t* __restrict__ cap,
     int32_t* __restrict__ out_best, int32_t* __restrict__ out_w,
     int32_t* __restrict__ out_own, long long n_rows, int S, int C,
-    uint32_t salt, int require_fit) {
+    uint32_t salt, int require_fit, const int32_t* __restrict__ comm,
+    int has_range, int32_t lo, int32_t hi) {
   const long long warps_per_block = blockDim.x >> 5;
   const long long first = (long long)blockIdx.x * warps_per_block +
                           (threadIdx.x >> 5);
   const long long step = (long long)gridDim.x * warps_per_block;
   for (long long row = first; row < n_rows; row += step) {
+    RowArgmax acc(__ldg(labels + row), __ldg(node_w + row), cw, cap, C, salt,
+                  require_fit);
+    if (comm != nullptr) {
+      acc.comm = comm;
+      acc.n = (int)n_rows;
+      acc.own_comm = __ldg(comm + row);
+    }
+    acc.has_range = has_range;
+    acc.lo = lo;
+    acc.hi = hi;
     const RowBest r = kp_row_best(
-        GlobalSlots{slot_label + row * S, slot_w + row * S}, S,
-        RowArgmax(__ldg(labels + row), __ldg(node_w + row), cw, cap, C, salt,
-                  require_fit));
+        GlobalSlots{slot_label + row * S, slot_w + row * S}, S, acc);
     if ((threadIdx.x & 31) == 0) {
       out_best[row] = r.best;
       out_w[row] = r.best_w;
@@ -209,7 +227,8 @@ extern "C" int kp_best_from_slots(const void* slot_label, const void* slot_w,
                                   void* out_best, void* out_w, void* out_own,
                                   long long n_rows, int S, int C,
                                   unsigned int salt, int require_fit,
-                                  void* stream) {
+                                  const void* communities, int has_range,
+                                  int lo, int hi, void* stream) {
   if (n_rows > 0) {
     const int threads = 256;  // 8 rows per block
     long long blocks = (n_rows + 7) / 8;
@@ -219,7 +238,8 @@ extern "C" int kp_best_from_slots(const void* slot_label, const void* slot_w,
         (const int32_t*)slot_label, (const int32_t*)slot_w,
         (const int32_t*)labels, (const int32_t*)cw, (const int32_t*)node_w,
         (const int32_t*)cap, (int32_t*)out_best, (int32_t*)out_w,
-        (int32_t*)out_own, n_rows, S, C, salt, require_fit);
+        (int32_t*)out_own, n_rows, S, C, salt, require_fit,
+        (const int32_t*)communities, has_range, lo, hi);
   }
   return (int)cudaGetLastError();
 }

@@ -1,12 +1,16 @@
 // K2: dense_block_ratings -- the exact i32[n, k] table
 //   conn[u, clip(labels[dst[e]], 0, k-1)] += w[e]  for e in row u's span,
 // with each span [start[u], end[u]) clipped to [0, S), S = the slot count.
+// The label table has L entries, L = n on the shared-memory path; a shard
+// of the dist path passes its owned labels followed by its ghost labels
+// (L = n_loc + g_loc > n).  dst indexes the table, clamped into [0, L).
 //
 // Replaces the gather-then-accumulate around the TPU kernel
 // kaminpar_tpu/ops/lane_gather.py::lane_gather as routed_block_ratings
 // (lane_gather.py:451) uses it, and segments.dense_block_ratings
 // (segments.py:461): the neighbour-block lookup is fused into the
 // accumulation, so the gathered labels never reach device memory.
+//
 //
 // Precondition: the spans are in row order and do not overlap
 // (start[u] <= end[u] <= start[u+1] after clipping), as CSR offsets and
@@ -123,7 +127,7 @@ __global__ void plan_kernel(const int32_t* __restrict__ start,
 // weight, the index clamped into the table.
 __device__ __forceinline__ void load_batch(
     const int32_t* __restrict__ dst, const int32_t* __restrict__ w,
-    const int32_t* __restrict__ labels, int base, int j1, int n,
+    const int32_t* __restrict__ labels, int base, int j1, int nl,
     int32_t (&we)[kUnroll], int32_t (&lab)[kUnroll]) {
   int32_t d[kUnroll];
 #pragma unroll
@@ -135,7 +139,7 @@ __device__ __forceinline__ void load_batch(
   }
 #pragma unroll
   for (int u = 0; u < kUnroll; ++u) {
-    int dc = d[u] < 0 ? 0 : (d[u] >= n ? n - 1 : d[u]);
+    int dc = d[u] < 0 ? 0 : (d[u] >= nl ? nl - 1 : d[u]);
     lab[u] = we[u] != 0 ? __ldg(labels + dc) : 0;
   }
 }
@@ -148,7 +152,7 @@ ratings_kernel(const int32_t* __restrict__ start,
                const int32_t* __restrict__ end,
                const int32_t* __restrict__ dst, const int32_t* __restrict__ w,
                const int32_t* __restrict__ labels, int32_t* __restrict__ conn,
-               const int32_t* __restrict__ plan, int n, int S, int k,
+               const int32_t* __restrict__ plan, int n, int nl, int S, int k,
                int nblocks) {
   extern __shared__ int4 smem[];
   int32_t* row_s = reinterpret_cast<int32_t*>(smem);
@@ -170,7 +174,7 @@ ratings_kernel(const int32_t* __restrict__ start,
   // label is read before its slot's row is known (the index clamped into
   // the table, the value used only for a slot inside a span).
   int32_t we[kUnroll], lab[kUnroll];
-  load_batch(dst, w, labels, j0, j1, n, we, lab);
+  load_batch(dst, w, labels, j0, j1, nl, we, lab);
 
   for (int r = threadIdx.x; r < nr; r += kThreads) {
     int e = (int)clip_slot(__ldg(end + i0 + r), S);
@@ -189,7 +193,7 @@ ratings_kernel(const int32_t* __restrict__ start,
 
   for (int base = j0; base < j1; base += kUnroll * kThreads) {
     if (base != j0) {
-      load_batch(dst, w, labels, base, j1, n, we, lab);
+      load_batch(dst, w, labels, base, j1, nl, we, lab);
     }
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u) {
@@ -249,8 +253,8 @@ ratings_kernel(const int32_t* __restrict__ start,
 template <bool kShared>
 int launch_ratings(const void* start, const void* end, const void* dst,
                    const void* w, const void* labels, void* conn,
-                   const int32_t* plan, int n, int S, int k, int nblocks,
-                   cudaStream_t st) {
+                   const int32_t* plan, int n, int nl, int S, int k,
+                   int nblocks, cudaStream_t st) {
   size_t smem = (2 * (size_t)kMaxRows +
                  (kShared ? (size_t)counter_ints(k) : 0)) * sizeof(int32_t);
   if (smem > 48 * 1024) {
@@ -261,20 +265,22 @@ int launch_ratings(const void* start, const void* end, const void* dst,
   }
   ratings_kernel<kShared><<<(unsigned)nblocks, kThreads, smem, st>>>(
       (const int32_t*)start, (const int32_t*)end, (const int32_t*)dst,
-      (const int32_t*)w, (const int32_t*)labels, (int32_t*)conn, plan, n, S,
-      k, nblocks);
+      (const int32_t*)w, (const int32_t*)labels, (int32_t*)conn, plan, n, nl,
+      S, k, nblocks);
   return 0;
 }
 
 }  // namespace
 
-// n rows and `slots` slots (both below 2^31); plan: int32[2 (nblocks +
-// 1)] scratch, nblocks from kp_dense_block_ratings_blocks.
+// n rows, n_labels label entries and `slots` slots (all below 2^31);
+// plan: int32[2 (nblocks + 1)] scratch, nblocks from
+// kp_dense_block_ratings_blocks.
 extern "C" int kp_dense_block_ratings(const void* start, const void* end,
                                       const void* dst, const void* w,
                                       const void* labels, void* conn,
                                       void* plan, long long n,
-                                      long long slots, int k,
+                                      long long n_labels, long long slots,
+                                      int k,
                                       long long nblocks, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   const bool shared = k <= kMaxSharedK;
@@ -289,9 +295,10 @@ extern "C" int kp_dense_block_ratings(const void* start, const void* end,
   const int32_t* p = (const int32_t*)plan;
   int code = shared
       ? launch_ratings<true>(start, end, dst, w, labels, conn, p, (int)n,
-                             (int)slots, k, (int)nblocks, st)
+                             (int)n_labels, (int)slots, k, (int)nblocks, st)
       : launch_ratings<false>(start, end, dst, w, labels, conn, p, (int)n,
-                              (int)slots, k, (int)nblocks, st);
+                              (int)n_labels, (int)slots, k, (int)nblocks,
+                              st);
   if (code != 0) return code;
   return (int)cudaGetLastError();
 }

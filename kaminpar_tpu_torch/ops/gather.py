@@ -147,7 +147,9 @@ def dense_block_ratings(
     """Exact (n_pad, k) connection table: conn[u, clip(labels[dst[e]], 0,
     k-1)] += edge_w[e] over the slots e of row u's span [row_start[u],
     row_end[u]), clipped to [0, len(dst)).  The spans are in row order and
-    do not overlap (CSR offsets, or expand_active_rows' start and end)."""
+    do not overlap (CSR offsets, or expand_active_rows' start and end).
+    The label table may be longer than the rows (a dist shard's owned
+    labels then its ghosts); dst must index it."""
     if dst.device.type == "cpu":
         return dense_block_ratings_twin(
             row_start, row_end, dst, edge_w, labels, n_pad, num_blocks
@@ -158,8 +160,12 @@ def dense_block_ratings(
     _require_i32_on(dst.device, row_start, row_end, dst, edge_w, labels)
     if dst.shape != edge_w.shape:
         raise ValueError("dst and edge_w must have one shape")
-    if not (row_start.shape == row_end.shape == labels.shape == (n_pad,)):
-        raise ValueError("row_start, row_end and labels must have n_pad "
+    if not (row_start.shape == row_end.shape == (n_pad,)):
+        raise ValueError("row_start and row_end must have n_pad entries")
+    if labels.dim() != 1 or labels.numel() < 1 or (
+        labels.numel() >= 2**31
+    ):
+        raise ValueError("labels must be a non-empty table below 2^31 "
                          "entries")
     slots = dst.numel()
     if slots > MAX_RATING_SLOTS:
@@ -175,14 +181,14 @@ def dense_block_ratings(
                        device=dst.device)
     fn = _native.bind(
         "dense_ratings.cu", "kp_dense_block_ratings",
-        (_VP, _VP, _VP, _VP, _VP, _VP, _VP, _LL, _LL, ctypes.c_int, _LL,
-         _VP),
+        (_VP, _VP, _VP, _VP, _VP, _VP, _VP, _LL, _LL, _LL, ctypes.c_int,
+         _LL, _VP),
     )
     with _native.timed("dense_block_ratings"):
         code = fn(row_start.data_ptr(), row_end.data_ptr(), dst.data_ptr(),
                   edge_w.data_ptr(), labels.data_ptr(), conn.data_ptr(),
-                  plan.data_ptr(), n_pad, slots, int(num_blocks), blocks,
-                  _stream())
+                  plan.data_ptr(), n_pad, labels.numel(), slots,
+                  int(num_blocks), blocks, _stream())
     _native.check(code, "dense_block_ratings")
     dense_block_ratings.launches += 1
     return conn

@@ -67,6 +67,9 @@ class LPConfig:
     two_hop: bool = True
     cluster_isolated: bool = True
     refinement: bool = False
+    # dist path only: join only clusters led by a node of the same shard
+    # (the reference's LocalLPClusterer)
+    dist_local_only: bool = False
     rating: str = "auto"
     num_slots: int = 32
     topk: int = 6

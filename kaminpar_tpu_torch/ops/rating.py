@@ -76,13 +76,16 @@ def select_engine(
     return "sort", f"{scatter_reject}; no row spans (sharded COO)"
 
 
-def _label_bits(n_pad: int, num_slots: int) -> int:
+def _label_bits(n_pad: int, num_slots: int,
+                label_space: Optional[int] = None) -> int:
     """Bits of a slot table's winner key that hold the label (labels are
-    rows: label_space = n_pad); raises where the table or the key does not
-    fit int32."""
+    rows unless `label_space` says otherwise); raises where the table or
+    the key does not fit int32."""
     if n_pad * num_slots >= 2**30:
         raise ValueError("n_pad * num_slots must stay well inside int32")
-    label_bits = max(int(n_pad - 1).bit_length(), 1)
+    if label_space is None:
+        label_space = n_pad
+    label_bits = max(int(label_space - 1).bit_length(), 1)
     if 31 - label_bits < 4:
         raise ValueError(
             f"label_space={n_pad} leaves {31 - label_bits} winner-key "
@@ -100,6 +103,7 @@ def scatter_slot_ratings(
     salt,
     valid: torch.Tensor | None = None,
     spans: Tuple[torch.Tensor, torch.Tensor] | None = None,
+    label_space: Optional[int] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Exact-where-rated hashed rating rows via scatter-adds only.
 
@@ -108,9 +112,11 @@ def scatter_slot_ratings(
     one label holds that label's exact connection weight; contested
     slots keep a hashed winner and the losers retry under a second salt;
     labels still contested after both passes leave their row not fully
-    rated."""
-    label_space = n_pad
-    label_bits = _label_bits(n_pad, num_slots)
+    rated.  `label_space` bounds the label domain where it differs from
+    the rows (a dist shard's n_loc rows rate global cluster ids)."""
+    if label_space is None:
+        label_space = n_pad
+    label_bits = _label_bits(n_pad, num_slots, label_space)
     key_bits = 31 - label_bits
     total = n_pad * num_slots
     lab_mask = (1 << label_bits) - 1
@@ -226,19 +232,15 @@ def best_from_slots(
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Per-node (best_label, best_w, w_own) from scatter slot tables: max
     weight, then max hash_u32(label, tie_salt), then max label among the
-    feasible non-own slots; -1 / INT32_MIN when none.  `communities` and
-    `label_range` are not on the default path: only the twin (CPU)
-    supports them."""
+    feasible non-own slots; -1 / INT32_MIN when none.  `communities`
+    (i32[rows], read at clip(label, 0, rows - 1)) and `label_range`
+    (lo, hi: only labels in [lo, hi) are feasible) mask the candidates
+    after w_own is taken."""
     if slot_label.device.type == "cpu":
         return best_from_slots_twin(
             slot_label, slot_w, labels, cluster_weights, node_w, cap,
             tie_salt, communities=communities, require_fit=require_fit,
             label_range=label_range,
-        )
-    if communities is not None or label_range is not None:
-        raise NotImplementedError(
-            "best_from_slots kernel: communities/label_range are not "
-            "supported on CUDA"
         )
     n_pad, S = slot_label.shape
     C = cluster_weights.shape[0]
@@ -253,6 +255,16 @@ def best_from_slots(
         node_w.shape != (n_pad,)
     ):
         raise ValueError("best_from_slots: inconsistent shapes")
+    comm_ptr = None
+    if communities is not None:
+        communities = communities.contiguous()
+        _require_i32_on(slot_label.device, communities)
+        if communities.shape != (n_pad,):
+            raise ValueError("best_from_slots: communities must have one "
+                             "entry per row")
+        comm_ptr = communities.data_ptr()
+    lo, hi = (0, 0) if label_range is None else (
+        int(label_range[0]), int(label_range[1]))
     best = torch.empty(n_pad, dtype=torch.int32, device=slot_label.device)
     best_w = torch.empty_like(best)
     w_own = torch.empty_like(best)
@@ -260,7 +272,7 @@ def best_from_slots(
     fn = _native.bind(
         "best_from_slots.cu", "kp_best_from_slots",
         (vp, vp, vp, vp, vp, vp, vp, vp, vp, ctypes.c_longlong, c_int,
-         c_int, ctypes.c_uint, c_int, vp),
+         c_int, ctypes.c_uint, c_int, vp, c_int, c_int, c_int, vp),
     )
     with _native.timed("best_from_slots"):
         code = fn(
@@ -268,7 +280,7 @@ def best_from_slots(
             cluster_weights.data_ptr(), node_w.data_ptr(), cap.data_ptr(),
             best.data_ptr(), best_w.data_ptr(), w_own.data_ptr(),
             n_pad, S, C, int(tie_salt) & 0xFFFFFFFF, int(bool(require_fit)),
-            _stream(),
+            comm_ptr, int(label_range is not None), lo, hi, _stream(),
         )
     _native.check(code, "best_from_slots")
     best_from_slots.launches += 1

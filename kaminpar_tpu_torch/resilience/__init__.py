@@ -58,7 +58,9 @@ from . import memory  # noqa: F401
 
 def reset() -> None:
     """Reset injection counters, circuit breakers, integrity counters, the
-    active checkpoint manager and any armed deadline (test isolation)."""
+    active checkpoint manager, any armed deadline and the dist agreement
+    state (sentinels, gather override) (test isolation)."""
+    from . import agreement
     from . import faults as _faults
 
     _faults.reset()
@@ -66,3 +68,5 @@ def reset() -> None:
     integrity.reset()
     checkpoint.deactivate()
     deadline.clear()
+    agreement.disarm()
+    agreement.set_gather_override(None)

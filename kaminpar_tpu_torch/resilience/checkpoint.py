@@ -134,6 +134,7 @@ def barrier(
     payload: Optional[Callable[[], dict]] = None,
     keep: Optional[List[str]] = None,
     meta: Optional[dict] = None,
+    agree: bool = False,
 ) -> bool:
     """The single driver hook at every pipeline barrier.
 
@@ -144,6 +145,10 @@ def barrier(
     and returns False once the deadline wind-down has begun — callers
     stop starting new *optional* work on False (mandatory tail work —
     projection, extension, balance — ignores the verdict).
+    ``agree=True`` makes the verdict cross-rank consistent
+    (deadline.agreed_stop), for gated work that contains collectives.
+    A dist run's divergence sentinels audit every barrier first
+    (agreement.maybe_audit; one attribute read otherwise).
     """
     from . import deadline
 
@@ -153,6 +158,9 @@ def barrier(
         # nested (suspended) runs neither track stages nor checkpoint —
         # but they DO honor the wind-down verdict below
         deadline.note_stage(stage_id)
+        from . import agreement
+
+        agreement.maybe_audit(stage_id)
         mgr = run.manager
         if mgr is not None and mgr.enabled:
             # build the payload only while persistence has not degraded
@@ -183,6 +191,8 @@ def barrier(
                         f"simulated hard preemption at barrier {stage_id}"
                     )
                 deadline.request_stop(f"stop-at:{stage_id}")
+    if agree:
+        return not deadline.agreed_stop()
     return not deadline.should_stop()
 
 
@@ -256,6 +266,10 @@ def ctx_fingerprint(ctx) -> str:
     d = context_to_dict(ctx)
     d.pop("resilience", None)
     d.pop("debug", None)
+    shm = d.get("shm")  # a DistContext nests the shm tree
+    if isinstance(shm, dict):
+        shm.pop("resilience", None)
+        shm.pop("debug", None)
     blob = json.dumps(d, sort_keys=True, default=str)
     return hashlib.sha256(blob.encode()).hexdigest()[:24]
 
@@ -587,6 +601,22 @@ class CheckpointManager:
         if self._resume is None or self._resume_taken:
             return None
         return self._resume
+
+    def drop_resume(self, reason: str) -> None:
+        """Discard the pending resume state: a driver-level mismatch (a
+        resume under another shard count, seen through the shard
+        fingerprints) degrades to a logged clean restart."""
+        if self._resume is None:
+            return
+        from .. import telemetry
+        from ..utils.logger import log_warning
+
+        log_warning(f"--resume: {reason}; starting a clean run")
+        telemetry.event(
+            "checkpoint", action="clean-restart", error=reason[:300],
+        )
+        self._resume = None
+        self._resume_taken = False
 
     def take_resume(self, scheme: str) -> Optional[dict]:
         if (

@@ -81,6 +81,22 @@ def draining() -> str:
     return runstate.signal_reason()
 
 
+def agreed_stop() -> bool:
+    """The wind-down verdict for control flow that gates collective work:
+    the ranks' local verdicts max-reduced (agreement.agree_max), so any
+    rank stopping stops all.  With one rank it is should_stop()."""
+    local = should_stop()
+    try:
+        from .agreement import agree_max
+
+        agreed = bool(agree_max(1 if local else 0)[0])
+    except Exception:
+        return local
+    if agreed and not local:
+        request_stop("peer")
+    return agreed
+
+
 def request_stop(reason: str) -> None:
     """Ask the pipeline to wind down at its next barrier (signal handlers,
     tests, the serving drain).  Safe to call from a signal handler: sets

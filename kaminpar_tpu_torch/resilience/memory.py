@@ -257,13 +257,16 @@ def _ensure_state() -> GovernorState:
     return st
 
 
-def begin_run(graph: Any, ctx: Any, device: Any = None
+def begin_run(graph: Any, ctx: Any, device: Any = None,
+              price_shape: Optional[Tuple[int, int]] = None
               ) -> Optional[GovernorState]:
     """Arm the governor for one run (facade entry): price the whole graph,
     pick the starting rung (the forced test rung, else the lowest rung
     whose estimate fits the declared budget) and emit the
     `memory-budget` event when a budget or a forced rung is in force.
-    Returns None (dormant) under the kill switch."""
+    Returns None (dormant) under the kill switch.  ``price_shape=(n, m)``
+    prices another shape: the dist driver's heaviest padded shard (the
+    budget is per device)."""
     if not governor_enabled():
         runstate.current().memory = None
         return None
@@ -271,7 +274,10 @@ def begin_run(graph: Any, ctx: Any, device: Any = None
     runstate.current().memory = st
     st.device = device
     st.budget = budget_bytes(ctx)
-    n, m = int(graph.n), int(graph.m)
+    if price_shape is not None:
+        n, m = int(price_shape[0]), int(price_shape[1])
+    else:
+        n, m = int(graph.n), int(graph.m)
     k = int(getattr(ctx.partition, "k", 2) or 2)
     st.graph_shape = (n, m, k)
     st.bucket = "/".join(str(x) for x in padded_bucket(n, m, k))
@@ -410,14 +416,14 @@ def preflight(n: int, m: int, k: int, where: str = "") -> None:
 
 
 def _emit_rung_event(st: GovernorState, error: str, detail: str,
-                     injected: bool = False) -> None:
+                     injected: bool = False,
+                     triggering_rank: Optional[int] = None) -> None:
     from .. import telemetry
     from ..utils.logger import log_warning
     from .faults import SITES
 
     spec = SITES.get("device-oom")
-    telemetry.event(
-        "degraded",
+    attrs = dict(
         site="device-oom",
         error=error,
         detail=detail[:300],
@@ -428,9 +434,16 @@ def _emit_rung_event(st: GovernorState, error: str, detail: str,
         rung=st.rung,
         rung_name=RUNG_NAMES.get(st.rung, str(st.rung)),
     )
+    if triggering_rank is not None:
+        # agreed dist transitions name the rank whose proposal pulled the
+        # fleet to this rung
+        attrs["triggering_rank"] = int(triggering_rank)
+    telemetry.event("degraded", **attrs)
     log_warning(
         f"memory governor: {error} ({detail[:120]}); retrying at rung "
         f"{st.rung} ({RUNG_NAMES.get(st.rung)})"
+        + ("" if triggering_rank is None
+           else f" [agreed; triggered by rank {triggering_rank}]")
     )
 
 
@@ -529,6 +542,111 @@ def _attempt_at_rung(rung: int, attempt: Callable[[], np.ndarray],
         with caching.pad_policy_scope("tight"):
             return _semi_external_rung(graph, ctx, facade)
     return host_only_partition(graph, ctx)
+
+
+# ---------------------------------------------------------------------------
+# the distributed (cross-rank agreed) ladder
+# ---------------------------------------------------------------------------
+
+#: The dist driver's rungs: semi-external is skipped (host-chunked
+#: coarsening has no sharded counterpart); a dist run that cannot hold the
+#: spilled shard hierarchy goes to the host-only path.
+DIST_RUNG_ORDER = (
+    RUNG_NORMAL, RUNG_TIGHT_PADS, RUNG_SPILL_HIERARCHY, RUNG_HOST_ONLY,
+)
+
+
+def _next_dist_rung(rung: int) -> int:
+    for r in DIST_RUNG_ORDER:
+        if r > rung:
+            return r
+    return RUNG_HOST_ONLY
+
+
+def agree_rung(proposed: int) -> Tuple[int, int]:
+    """The cross-rank rung agreement: allgather-max over the ranks'
+    proposals (agreement.agree_max), so an OOM on any rank moves every
+    rank to the same rung.  Returns (agreed, triggering rank); a failed
+    agreement degrades to the local proposal."""
+    from .agreement import agree_max, rank
+
+    try:
+        return agree_max(int(proposed))
+    except Exception:
+        return int(proposed), rank()
+
+
+def run_dist_ladder(attempt: Callable[[], np.ndarray], graph: Any,
+                    ctx: Any, solver: Any) -> np.ndarray:
+    """The dist facade's OOM ladder (:func:`run_ladder` with agreed rung
+    transitions): 0 normal -> 1 tight pads -> 2 tight pads + spilled
+    shard hierarchy (the dist driver is the spiller) -> 4 host-only.  On
+    a classified DeviceOOM this rank proposes the next rung and adopts
+    the agreed maximum; the `degraded` event names the triggering rank.
+    Exhaustion re-raises with ``rungs_exhausted=True``."""
+    if not governor_enabled():
+        return attempt()
+    from ..utils import timer
+
+    st = state()
+    rung = st.rung if st is not None else RUNG_NORMAL
+    if rung == RUNG_SEMI_EXTERNAL:
+        # a forced or budget-picked rung 3 maps to host-only here
+        rung = RUNG_HOST_ONLY
+    while True:
+        if st is not None:
+            st.rung = rung
+        depth = len(timer.GLOBAL_TIMER._stack)
+        failure = None
+        try:
+            return _attempt_dist_at_rung(rung, attempt, graph, ctx, solver)
+        except (KeyboardInterrupt, SystemExit):
+            raise
+        except Exception as exc:
+            err = classify(exc, site="device-oom")
+            if not isinstance(err, DeviceOOM):
+                raise
+            if st is None:
+                st = _ensure_state()
+                st.rung = rung
+            if rung >= RUNG_HOST_ONLY:
+                st.exhausted = True
+                err.rungs_exhausted = True
+                from .. import telemetry
+                from ..utils.logger import log_warning
+
+                telemetry.annotate(memory_budget=summary())
+                log_warning(
+                    "memory governor: dist recovery ladder EXHAUSTED "
+                    f"(host-only rung failed: {err})"
+                )
+                raise err from exc
+            failure = (type(err).__name__, str(err), err.injected)
+            _release(exc)
+            _release(err)
+            err = None
+        proposed = _next_dist_rung(rung)
+        agreed, trig = agree_rung(proposed)
+        # never below the local proposal: a lagging peer must not re-run
+        # the rung that just failed here
+        rung = max(proposed, int(agreed))
+        st.rung = rung
+        st.engaged = True
+        _recover(st, depth)
+        _emit_rung_event(st, error=failure[0], detail=failure[1],
+                         injected=failure[2], triggering_rank=trig)
+
+
+def _attempt_dist_at_rung(rung: int, attempt: Callable[[], np.ndarray],
+                          graph: Any, ctx: Any, solver: Any) -> np.ndarray:
+    if rung == RUNG_NORMAL:
+        return attempt()
+    if rung in (RUNG_TIGHT_PADS, RUNG_SPILL_HIERARCHY):
+        # rung 2 spills at the barriers (on_barrier asks the dist driver)
+        with caching.pad_policy_scope("tight"):
+            return attempt()
+    # host-only takes the shared-memory context the DistContext nests
+    return host_only_partition(graph, getattr(ctx, "shm", ctx))
 
 
 def _semi_external_rung(graph: Any, ctx: Any, facade: Any) -> np.ndarray:

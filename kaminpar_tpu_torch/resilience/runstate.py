@@ -25,7 +25,7 @@ class RunState:
     __slots__ = (
         "budget_s", "grace_s", "t0", "deadline", "stop", "reason",
         "stage", "stage_at_stop", "announced", "manager", "suspend",
-        "memory",
+        "memory", "dist", "comm",
     )
 
     def __init__(self) -> None:
@@ -44,6 +44,12 @@ class RunState:
         self.suspend: int = 0
         # memory governor (memory.py): None while dormant
         self.memory = None  # Optional[GovernorState]
+        # divergence sentinels (agreement.py): armed only by the dist
+        # driver, None for shared-memory runs
+        self.dist = None  # Optional[agreement.AuditState]
+        # the dist path's collective account (parallel/mesh.py), created
+        # on first touch
+        self.comm = None  # Optional[mesh.CommLog]
 
 
 _tls = threading.local()

@@ -47,7 +47,8 @@ COMPILE_CAVEAT = (
     "once by nvcc and the host libraries by g++ before the run, outside "
     "its scopes; kernel launches and times are in perf.kernels"
 )
-COMM_CAVEAT = "one device: this package runs no collectives"
+COMM_CAVEAT = ("no collectives: a single-device run (the dist path's "
+               "account is parallel/mesh.py's)")
 LANE_GATHER_REASON = (
     "this package has no lane-gather probe: on CUDA every gather of the "
     "path is the hand-written kernel K1 (gather_i32)"
@@ -133,6 +134,24 @@ def _scope_tree(node) -> dict:
     }
 
 
+def _comm_section() -> dict:
+    """The dist path's collective account (parallel/mesh.py counts calls;
+    `traced_calls` carries the call count under the schema's name)."""
+    from ..parallel import mesh
+
+    records = mesh.comm_records()
+    if not records:
+        return {"caveat": COMM_CAVEAT, "records": []}
+    phases = mesh.comm_phase_totals()
+    return {
+        "caveat": mesh.COMM_CAVEAT,
+        "records": [dict(r, traced_calls=r["calls"]) for r in records],
+        "phases": phases,
+        "bytes_total": sum(p["bytes_total"] for p in phases.values()),
+        "phase_opens": mesh.phase_opens(),
+    }
+
+
 def build_run_report(extra_run: Optional[dict] = None) -> dict:
     """Assemble the report from the current telemetry and timer state.
 
@@ -157,6 +176,8 @@ def build_run_report(extra_run: Optional[dict] = None) -> dict:
     # the dynamic-repartitioning audit trail (dynamic/driver.summarize),
     # annotated by the chain driver's caller
     dynamic = info.pop("dynamic", {"enabled": False})
+    # the dist driver's audit trail (parallel/dist_partitioner.py)
+    dist_resilience = info.pop("dist_resilience", {"enabled": False})
     run = dict(info)
     if extra_run:
         run.update({k: jsonable(v) for k, v in extra_run.items()})
@@ -210,7 +231,7 @@ def build_run_report(extra_run: Optional[dict] = None) -> dict:
         "scope_tree": _scope_tree(timer.GLOBAL_TIMER.root),
         "levels": levels,
         "rating": {"levels": rating_levels, "engines": rating_counts},
-        "comm": {"caveat": COMM_CAVEAT, "records": []},
+        "comm": _comm_section(),
         "events": [e.to_dict() for e in _events()],
         "counters": statistics.as_dict() if statistics.enabled() else {},
         "lane_gather": {"mode": "not-probed", "reason": LANE_GATHER_REASON},
@@ -226,7 +247,7 @@ def build_run_report(extra_run: Optional[dict] = None) -> dict:
         "memory_budget": memory_budget,
         "quality": {"enabled": False,
                     "caveat": "quality observatory unavailable"},
-        "dist_resilience": {"enabled": False},
+        "dist_resilience": dist_resilience,
         "external": external,
         "supervision": {"enabled": False},
         "dynamic": dynamic,

@@ -100,6 +100,43 @@ def test_scan_covers_the_command_line_and_dynamic_modules(module):
     test_scan_covers_the_file_io_and_telemetry_modules(module)
 
 
+@pytest.mark.parametrize("module", [
+    "parallel/__init__.py", "parallel/mesh.py", "parallel/dist_graph.py",
+    "parallel/dist_metrics.py", "parallel/dist_lp.py",
+    "parallel/dist_balancer.py", "parallel/dist_contraction.py",
+    "parallel/replication.py", "parallel/dist_context.py",
+    "parallel/dist_partitioner.py", "parallel/dist_jet.py",
+    "parallel/dist_coloring.py", "parallel/dist_clp.py",
+    "parallel/dist_cluster_balancer.py", "parallel/dist_hem.py",
+    "graphs/bfs_extractor.py", "dcli.py", "resilience/agreement.py",
+    "utils/math.py",
+])
+def test_scan_covers_the_dist_modules(module):
+    """The distributed layer, its command line and the agreement module
+    are in the scan: each imports, and imports neither JAX nor the JAX
+    package."""
+    test_scan_covers_the_file_io_and_telemetry_modules(module)
+
+
+def test_dist_layer_exports_the_jax_names():
+    """kaminpar_tpu_torch.parallel exports the JAX package's __all__."""
+    import kaminpar_tpu.parallel as jp
+
+    assert sorted(kp.parallel.__all__) == sorted(jp.__all__)
+    for name in jp.__all__:
+        assert hasattr(kp.parallel, name), name
+
+
+@pytest.mark.parametrize("x,m", [(0, 4), (5, 4), (8, 4), (9, 256),
+                                 (-3, 8)])
+def test_own_copy_of_round_up(x, m):
+    from kaminpar_tpu.utils import math as jmath
+    from kaminpar_tpu_torch.utils import math
+
+    assert math.round_up(x, m) == jmath.round_up(x, m)
+    assert math.ceil_div(x, m) == jmath.ceil_div(x, m)
+
+
 def test_entry_points_name_the_port():
     """`python -m kaminpar_tpu_torch` runs the port's CLI, and the C ABI's
     embedded interpreter imports the port's capi module."""

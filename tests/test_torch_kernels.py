@@ -325,9 +325,12 @@ def test_wrappers_never_take_the_twin_off_cpu(monkeypatch):
     slots = torch.zeros((512, 64), dtype=torch.int32, device="meta")
     with pytest.raises(_KernelPathTaken):
         rating.best_from_slots(slots, slots, meta, meta, meta, meta, 1)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(_KernelPathTaken):  # the masks reach the kernel
         rating.best_from_slots(slots, slots, meta, meta, meta, meta, 1,
-                               communities=meta)
+                               communities=meta, label_range=(0, 256))
+    with pytest.raises(_KernelPathTaken):  # a ghost-extended label table
+        gather.dense_block_ratings(meta[:256], meta[:256], meta, meta, meta,
+                                   256, 4)
     with pytest.raises(TypeError):
         gather.gather_i32(meta, meta.to(torch.int64))
 
