@@ -178,6 +178,27 @@ Phases, each fatal on failure:
      launched in every cell and the standalone K3 in the two scatter
      cells, each counted from zero; prints the walls per phase, the
      levels, the first level's per-shard edges and the peak allocation.
+  13a. partitioning as a service at n = 2^14, k=8: one batch (the graph
+     object and its `gen:` spec) through PartitionService on the CPU and
+     on the card, in this process, verdicts and partitions bitwise equal
+     (and phase 4's partition); then the same two requests in a worker
+     process that the service spawns on the card, with equal partitions,
+     then an injected worker hang (SIGKILLed past its 5 s ceiling:
+     failed/worker-hang) and an injected worker crash (failed/
+     worker-crash);
+  13b. the service at full width, k=16, eps=0.03, seed=1, in this
+     process with a metrics file (scraped mid-batch) and a heartbeat:
+     the large graph (cut 2,971,596, phase 5's partition), its duplicate
+     from the result cache with no kernel launch, the medium graph
+     (250,236, the fused K3 launched); the large graph in the service's
+     worker on the card (13a's service: the queue keeps serving after
+     the hang and the crash), its partition phase 5's and the worker's
+     own K1 and K2 launches in its reply; and `python -m
+     kaminpar_tpu_torch --serve-batch` in a subprocess on the medium
+     spec and its duplicate with `--trace-out`, `--metrics-file` and
+     `--heartbeat-file`.  Prints the serve wall against phase 5's direct
+     wall, the spawn handshakes, the npz shipping, the worker's RSS and
+     each request's peak device allocation.
   Phases 5, 7b, 8b, 9b and 12b fail on any degradation, rung, spill,
      wind-down or integrity-violation event;
   6. print the per-kernel JSON line, then the final status line.
@@ -200,6 +221,7 @@ import contextlib
 import hashlib
 import json
 import os
+import re
 import shutil
 import signal
 import statistics
@@ -581,13 +603,14 @@ def main() -> None:
     for fn in counted:
         fn.launches = 0
     path_ms = {fn.__name__: {} for fn in counted}
-    main_parts = {}
+    main_parts, main_walls = {}, {}
     for name, n, m, seed in main_runs:
         _native.EVENT_LOG = {}
         native.ml_bipartition.calls = 0
-        main_parts[name], _ = run_main(
+        main_parts[name], main_solver = run_main(
             name, graphs[name][0], kp, counted, dev, metrics,
             device_graph_from_host, torch, "default", EXPECTED_CUTS[name])
+        main_walls[name] = main_solver.smoke_wall
         torch.cuda.synchronize()
         for fname, events in _native.EVENT_LOG.items():
             path_ms[fname][name] = sum(a.elapsed_time(b) for a, b in events)
@@ -703,6 +726,24 @@ def main() -> None:
     dist_launches = {fn.__name__: sum(r[fn.__name__]
                                       for r, _ in dist_runs.values())
                      for fn in counted}
+
+    # -- 13. partitioning as a service: PartitionService in this process
+    # and in a spawned worker on the card, the CLI's --serve-batch
+    print(json.dumps({"phase_13_at_s": round(time.perf_counter() - T_START,
+                                             1)}), flush=True)
+    tmp = tempfile.mkdtemp(prefix="kp-smoke-serving-")
+    try:
+        worker_svc = check_serving_parity(g_small, small_default, kp, torch)
+        try:
+            slice_runs.update(run_serving_paths(
+                graphs, main_parts, main_walls, worker_svc, kp, counted,
+                path_kernels, torch, tmp))
+        finally:
+            worker_svc.close()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(json.dumps({"phase_13_done_at_s": round(
+        time.perf_counter() - T_START, 1)}), flush=True)
 
     for entry in kernels:
         name = entry["name"]
@@ -2851,6 +2892,280 @@ def run_dist_paths(graphs, kp, counted, dev, torch) -> dict:
         }), flush=True)
         runs[f"dist/{cell}/{variant}"] = (record["launches"],
                                           record["path_ms"])
+    return runs
+
+
+# ---------------------------------------------------------------------------
+# phase 13: partitioning as a service
+
+# the hard ceiling of 13a's injected worker hang (seconds)
+SERVE_HANG_S = 5.0
+PROM_SAMPLE = re.compile(
+    r'^[a-zA-Z_:][a-zA-Z0-9_:]*(\{[^}]*\})? -?[0-9.e+-]+$')
+
+
+def serving_record(rec) -> dict:
+    """A request's record without its partition, for the log."""
+    return {k: v for k, v in rec.to_dict().items() if k != "phases"}
+
+
+def check_serving_parity(g_small, small_default, kp, torch):
+    """13a: one batch through PartitionService on the CPU and on the card
+    in this process (verdicts and partitions bitwise equal, the graph
+    object's partition phase 4's), then the same requests in a worker
+    that a process-isolated service spawns on the card, an injected hang
+    and an injected crash.  Returns that service, whose queue 13b goes on
+    serving."""
+    from kaminpar_tpu_torch.serving import (
+        PartitionRequest,
+        PartitionService,
+        ServiceConfig,
+    )
+
+    def batch(prefix=""):
+        return [PartitionRequest(g_small, k=8, seed=1,
+                                 request_id=prefix + "small-graph"),
+                PartitionRequest(SMALL_SPEC, k=8, seed=2,
+                                 request_id=prefix + "small-spec")]
+
+    kp.resilience.reset()
+    recs = {}
+    for device in ("cpu", "cuda"):
+        svc = PartitionService("default", ServiceConfig(keep_partitions=True),
+                               device=device)
+        t0 = time.perf_counter()
+        recs[device] = svc.serve(batch())
+        svc.close()
+        print(json.dumps({"serving_small": device,
+                          "wall_s": round(time.perf_counter() - t0, 3),
+                          "records": [serving_record(r)
+                                      for r in recs[device]]}), flush=True)
+    for c, g in zip(recs["cpu"], recs["cuda"]):
+        if c.verdict != "served" or (c.verdict, c.reason, c.cut) != (
+                g.verdict, g.reason, g.cut):
+            fail(f"serving n=2^14 {c.request_id}: CPU {serving_record(c)}, "
+                 f"card {serving_record(g)}")
+        if not np.array_equal(c.partition, g.partition):
+            fail(f"serving n=2^14 {c.request_id}: CPU and card partitions "
+                 "differ")
+    if not np.array_equal(recs["cuda"][0].partition, small_default):
+        fail("serving n=2^14: not phase 4's partition")
+
+    worker_svc = PartitionService(
+        "default", ServiceConfig(isolation="process", keep_partitions=True),
+        device="cuda")
+    t0 = time.perf_counter()
+    with env_scope({"KAMINPAR_TPU_FAULTS":
+                    "worker-hang:nth=3,worker-crash:nth=4"}):
+        got = worker_svc.serve(batch("worker-") + [
+            PartitionRequest(SMALL_SPEC, k=8, seed=3,
+                             hard_deadline_s=SERVE_HANG_S,
+                             request_id="worker-hang"),
+            PartitionRequest(SMALL_SPEC, k=8, seed=4,
+                             request_id="worker-crash")])
+    wall = time.perf_counter() - t0
+    hangs = worker_svc.supervision_summary()["hangs"]
+    kp.resilience.reset()
+    for c, w in zip(recs["cpu"], got):
+        if w.verdict != "served" or not np.array_equal(c.partition,
+                                                       w.partition):
+            fail(f"serving n=2^14 in the worker, {w.request_id}: "
+                 f"{serving_record(w)}, not the CPU's partition")
+    verdicts = [(r.verdict, r.reason) for r in got[2:]]
+    if verdicts != [("failed", "worker-hang"), ("failed", "worker-crash")]:
+        fail(f"serving n=2^14: the injected hang and crash gave {verdicts}")
+    pool = worker_svc._pool
+    print(json.dumps({
+        "serving_worker_small": "CPU partitions, hang and crash contained",
+        "wall_s": round(wall, 3),
+        "records": [serving_record(r) for r in got],
+        "workers": pool.stats, "spawn_s": list(pool.spawn_seconds),
+        "worker_rss_at_spawn_bytes": list(pool.spawn_rss_bytes),
+        "worker_rss_bytes": list(pool.rss_bytes),
+        "hangs": hangs,
+        "at_s": round(time.perf_counter() - T_START, 1), "card": CARD,
+    }), flush=True)
+    return worker_svc
+
+
+def run_serving_paths(graphs, main_parts, main_walls, worker_svc, kp,
+                      counted, path_kernels, torch, tmp) -> dict:
+    """13b: the service at full width in this process (with a metrics
+    file scraped mid-batch and a heartbeat), the large graph in the
+    worker, and the CLI's --serve-batch in a subprocess."""
+    from kaminpar_tpu_torch.resilience import supervisor
+    from kaminpar_tpu_torch.serving import (
+        PartitionRequest,
+        PartitionService,
+        ServiceConfig,
+    )
+    from kaminpar_tpu_torch.telemetry import metrics as metrics_mod
+
+    runs = {}
+    g_large, g_med = graphs["large"][0], graphs["medium"][0]
+    prom = os.path.join(tmp, "service.prom")
+    heartbeat = os.path.join(tmp, "service.heartbeat")
+    with env_scope({"KAMINPAR_TPU_METRICS_CADENCE_S": "0.5"}):
+        svc = PartitionService("default", ServiceConfig(
+            keep_partitions=True, metrics_file=prom,
+            heartbeat_file=heartbeat), device="cuda")
+    hb0 = (os.stat(heartbeat).st_mtime_ns,
+           supervisor.heartbeat_state()["count"])
+
+    def serve(rid, graph, record):
+        with counting(counted, torch, record):
+            rec = svc.serve([PartitionRequest(graph, k=K_MAIN,
+                                              epsilon=0.03, seed=1,
+                                              request_id=rid)])[0]
+        print(json.dumps({
+            "serving": rid, "record": serving_record(rec),
+            "phases_ms": rec.phases,
+            "peak_device_bytes": rec.device_peak_bytes,
+            "launches": record["launches"], "path_ms": record["path_ms"],
+            "at_s": round(time.perf_counter() - T_START, 1), "card": CARD,
+        }), flush=True)
+        if rec.verdict != "served":
+            fail(f"serving {rid}: {serving_record(rec)}")
+        return rec
+
+    try:
+        record = {}
+        large = serve("large", g_large, record)
+        if large.cached or large.cut != EXPECTED_CUTS["large"] or (
+                part_digest(large.partition)
+                != part_digest(main_parts["large"])):
+            fail(f"serving large: {serving_record(large)}, not phase 5's "
+                 "partition")
+        need("serving large", record, path_kernels[:2])
+        runs["serving/large"] = (record["launches"], record["path_ms"])
+        # a scrape mid-batch: the cadence thread (every 0.5 s) publishes
+        # the first verdict
+        for _ in range(40):
+            with open(prom) as f:
+                scrape = f.read().splitlines()
+            if any(ln.startswith("kmp_requests_total") for ln in scrape):
+                break
+            time.sleep(0.05)
+        bad = [ln for ln in scrape
+               if not ln.startswith("#") and not PROM_SAMPLE.match(ln)]
+        if bad or not any(ln.startswith("kmp_requests_total")
+                          for ln in scrape):
+            fail(f"metrics scrape mid-batch: {bad[:3] or scrape[:5]}")
+        record = {}
+        dup = serve("large-duplicate", g_large, record)
+        if not dup.cached or any(record["launches"].values()) or (
+                part_digest(dup.partition) != part_digest(large.partition)):
+            fail(f"serving the duplicate: {serving_record(dup)}, launches "
+                 f"{record['launches']}")
+        record = {}
+        med = serve("medium", g_med, record)
+        if med.cut != EXPECTED_CUTS["medium"] or (
+                part_digest(med.partition)
+                != part_digest(main_parts["medium"])):
+            fail(f"serving medium: {serving_record(med)}, not phase 5's "
+                 "partition")
+        need("serving medium", record, path_kernels)
+        runs["serving/medium"] = (record["launches"], record["path_ms"])
+        hb1 = (os.stat(heartbeat).st_mtime_ns,
+               supervisor.heartbeat_state()["count"])
+        if not (hb1[0] > hb0[0] and hb1[1] > hb0[1]):
+            fail(f"serving: the heartbeat did not advance ({hb0} -> {hb1})")
+        summary = svc.summary()
+    finally:
+        svc.close()
+        metrics_mod.reset()
+        supervisor.set_heartbeat(None)
+    print(json.dumps({
+        "serving_summary": summary["counts"],
+        "cache": summary["cache"]["result"],
+        "latency_total": summary["latency"]["phases"]["total"],
+        "serve_wall_s": {"large": large.wall_s, "medium": med.wall_s},
+        "direct_wall_s": main_walls,
+        "metrics_lines": len(scrape), "heartbeat": [hb0, hb1],
+        "card": CARD}), flush=True)
+
+    # the large graph in the worker: the queue serves on after the hang
+    # and the crash; the worker's own launches, and their CUDA-event ms
+    # (EVENT_LOG set here has the worker time them), come back in its
+    # reply and ride on the request's record
+    pool = worker_svc._pool
+    spawned = pool.stats["spawned"]
+    parent = {}
+    t0 = time.perf_counter()
+    with counting(counted, torch, parent):
+        rec = worker_svc.serve([PartitionRequest(
+            g_large, k=K_MAIN, epsilon=0.03, seed=1,
+            request_id="worker-large")])[0]
+    wall = time.perf_counter() - t0
+    launches = {fn.__name__: rec.worker_launches.get(fn.__name__, 0)
+                for fn in counted}
+    worker_ms = rec.worker_kernel_ms
+    print(json.dumps({
+        "serving_worker": "large", "record": serving_record(rec),
+        "phases_ms": rec.phases, "wall_s": round(wall, 3),
+        "launches_in_worker": launches, "path_ms_in_worker": worker_ms,
+        "launches_in_parent": parent["launches"],
+        "spawned": pool.stats["spawned"] - spawned,
+        "spawn_s": list(pool.spawn_seconds),
+        "ship_s": list(pool.ship_seconds),
+        "worker_rss_at_spawn_bytes": list(pool.spawn_rss_bytes),
+        "worker_rss_bytes": list(pool.rss_bytes),
+        "rss_limit_bytes": pool.rss_limit_bytes,
+        "peak_device_bytes": rec.device_peak_bytes,
+        "workers": pool.stats, "direct_wall_s": main_walls["large"],
+        "at_s": round(time.perf_counter() - T_START, 1), "card": CARD,
+    }), flush=True)
+    if rec.verdict != "served" or rec.cut != EXPECTED_CUTS["large"] or (
+            part_digest(rec.partition) != part_digest(main_parts["large"])):
+        fail(f"serving large in the worker: {serving_record(rec)}, not "
+             "the partition served in this process")
+    need("serving large in the worker", {"launches": launches},
+         path_kernels[:2])
+    if any(parent["launches"].values()):
+        fail("serving large in the worker: the parent launched "
+             f"{parent['launches']}, not the worker")
+    if worker_ms is None or sorted(worker_ms) != sorted(launches) or any(
+            launches[name] > 0 and not worker_ms[name] > 0
+            for name in launches):
+        fail(f"serving large in the worker: its launches {launches} came "
+             f"back with CUDA-event ms {worker_ms}")
+    runs["serving/large in the worker"] = (launches, worker_ms)
+
+    # the command line's batch mode on the card, with its files
+    batch = os.path.join(tmp, "batch.json")
+    with open(batch, "w") as f:
+        json.dump({"requests": [
+            {"graph": MEDIUM_SPEC, "k": K_MAIN, "epsilon": 0.03, "seed": 1,
+             "id": "medium"},
+            {"graph": MEDIUM_SPEC, "k": K_MAIN, "epsilon": 0.03, "seed": 1,
+             "id": "medium-again"}]}, f)
+    trace, prom, heartbeat = (os.path.join(tmp, name) for name in (
+        "cli.trace.json", "cli.prom", "cli.heartbeat"))
+    out, _, wall = run_process("CLI --serve-batch", [
+        sys.executable, "-m", "kaminpar_tpu_torch", "--serve-batch", batch,
+        "--trace-out", trace, "--metrics-file", prom,
+        "--heartbeat-file", heartbeat])
+    served = [ln for ln in out.splitlines() if ln.startswith("SERVED ")]
+    if len(served) != 2 or f"cut={EXPECTED_CUTS['medium']}" not in served[0] \
+            or "cache=hit" not in served[1]:
+        fail(f"CLI --serve-batch: {served}")
+    with open(trace) as f:
+        events = json.load(f)["traceEvents"]
+    spans = {(e["name"], e["args"].get("trace_id", "")[:3])
+             for e in events if e.get("cat") == "request"}
+    tracks = {e["args"]["name"] for e in events if e["ph"] == "M"}
+    if not {"request medium", "request medium-again"} <= tracks or (
+            ("compute", "tr-") not in spans):
+        fail(f"CLI --trace-out: tracks {sorted(tracks)[:6]}")
+    with open(prom) as f:
+        names = sorted({ln.split()[2] for ln in f.read().splitlines()
+                        if ln.startswith("# TYPE ")})
+    if "kmp_requests_total" not in names or not os.path.exists(heartbeat):
+        fail(f"CLI --metrics-file / --heartbeat-file: {names}")
+    print(json.dumps({"cli_serve_batch": served, "wall_s": round(wall, 3),
+                      "trace_tracks": len(tracks), "metric_names": names,
+                      "at_s": round(time.perf_counter() - T_START, 1),
+                      "card": CARD}), flush=True)
     return runs
 
 

@@ -1,6 +1,7 @@
-"""Shape-bucket padding policy and graph identity (own copy of
-kaminpar_tpu/caching.py's pad_size, pad_k, pad policy scopes, bucket_key,
-BucketTracker and full_graph_digest).
+"""Shape-bucket padding policy, graph identity and the serving caches (own
+copy of kaminpar_tpu/caching.py's pad_size, pad_k, pad policy scopes,
+bucket_key, BoundedCache, BucketTracker, full_graph_digest and
+result_cache_key).
 
 "bucketed" (the default) pads to the next power of two over a
 granularity floor; "tight" (the memory governor's rungs 1-3,
@@ -11,16 +12,18 @@ mode is thread-local and scope-managed, so the default path is unchanged.
 that decides whether a dynamic session's delta commits in place;
 `BucketTracker` counts the sightings of those triples; and
 `full_graph_digest` hashes a whole graph (or returns a session's stamped
-chain digest), the base link of a session's delta chain.  The JAX
-package's `BoundedCache` and `result_cache_key` serve its serving layer,
-which this package does not have yet.
+chain digest), the base link of a session's delta chain.
+`BoundedCache` is the serving layer's LRU result cache under an entry
+cap and a byte budget, keyed by `result_cache_key`; the memory governor
+sheds it under device-memory pressure (resilience/memory.py).
 """
 
 from __future__ import annotations
 
 import threading
+from collections import OrderedDict
 from contextlib import contextmanager
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Hashable, Optional, Tuple
 
 
 def _ceil2(x: int) -> int:
@@ -73,6 +76,185 @@ def bucket_key(n: int, m: int, k: int) -> Tuple[int, int, int]:
     """The padded-shape triple of a request: padded node slots, padded
     edge slots, padded block count."""
     return (pad_size(int(n) + 1), pad_size(max(int(m), 1)), pad_k(k))
+
+
+class BoundedCache:
+    """A thread-safe LRU cache with an entry cap and a byte budget.
+
+    ``put(key, value, nbytes)`` evicts least-recently-used entries until
+    both bounds hold; a single value larger than the byte budget is
+    refused (``stats()['oversize']`` counts these) rather than evicting
+    the whole cache for one entry.  ``get`` returns None on miss —
+    callers that need to distinguish a cached None should wrap values.
+    """
+
+    def __init__(self, max_entries: int = 128,
+                 max_bytes: int = 256 << 20) -> None:
+        self.max_entries = int(max_entries)
+        self.max_bytes = int(max_bytes)
+        self._lock = threading.Lock()
+        self._entries: "OrderedDict[Hashable, Tuple[Any, int]]" = (
+            OrderedDict()
+        )
+        self._bytes = 0
+        self.hits = 0
+        self.misses = 0
+        self.evictions = 0
+        self.oversize = 0
+        # eviction-cause split: `capacity` evictions keep the configured
+        # bounds (put overflow), `pressure` evictions were demanded by
+        # the memory governor (evict_to) — the serving report separates
+        # the two so a shrinking cache under HBM pressure is tellable
+        # from ordinary LRU turnover
+        self.evictions_capacity = 0
+        self.evictions_pressure = 0
+        # per-window twins (begin_window): a long-lived serving process
+        # reports fresh per-window rates instead of lifetime averages
+        # that asymptotically freeze under sustained traffic
+        self.w_hits = 0
+        self.w_misses = 0
+        self.w_evictions = 0
+        self.w_oversize = 0
+        self.w_evictions_capacity = 0
+        self.w_evictions_pressure = 0
+
+    def __len__(self) -> int:
+        with self._lock:
+            return len(self._entries)
+
+    @property
+    def nbytes(self) -> int:
+        return self._bytes
+
+    def get(self, key: Hashable) -> Optional[Any]:
+        with self._lock:
+            ent = self._entries.get(key)
+            if ent is None:
+                self.misses += 1
+                self.w_misses += 1
+                return None
+            self._entries.move_to_end(key)
+            self.hits += 1
+            self.w_hits += 1
+            return ent[0]
+
+    def put(self, key: Hashable, value: Any, nbytes: int = 0) -> bool:
+        """Insert (replacing any existing entry); returns False when the
+        value alone exceeds the byte budget and was refused."""
+        nbytes = int(nbytes)
+        with self._lock:
+            if nbytes > self.max_bytes:
+                self.oversize += 1
+                self.w_oversize += 1
+                return False
+            old = self._entries.pop(key, None)
+            if old is not None:
+                self._bytes -= old[1]
+            self._entries[key] = (value, nbytes)
+            self._bytes += nbytes
+            while (
+                len(self._entries) > self.max_entries
+                or self._bytes > self.max_bytes
+            ):
+                _, (_, dropped) = self._entries.popitem(last=False)
+                self._bytes -= dropped
+                self.evictions += 1
+                self.w_evictions += 1
+                self.evictions_capacity += 1
+                self.w_evictions_capacity += 1
+            return True
+
+    def evict(self, key: Hashable) -> bool:
+        """Drop one entry (the serving-cache fault's forced-evict mode);
+        returns True when something was removed."""
+        with self._lock:
+            ent = self._entries.pop(key, None)
+            if ent is None:
+                return False
+            self._bytes -= ent[1]
+            self.evictions += 1
+            self.evictions_capacity += 1
+            return True
+
+    def evict_to(self, target_bytes: int, cause: str = "pressure") -> int:
+        """Shed least-recently-used entries until the cache holds at most
+        ``target_bytes`` (0 sheds every byte-carrying entry; zero-byte
+        entries hold no device memory and are left alone).  Returns the
+        bytes freed.  The
+        memory governor's pressure hook and the OOM recovery ladder call
+        this with cause="pressure" — those evictions are counted apart
+        from ordinary capacity turnover (`stats()['evictions_pressure']`)
+        so an operator can see what HBM pressure cost the cache."""
+        target_bytes = max(0, int(target_bytes))
+        freed = 0
+        with self._lock:
+            carrying = [k for k, (_, nb) in self._entries.items() if nb > 0]
+            for key in carrying:
+                if self._bytes <= target_bytes:
+                    break
+                _, dropped = self._entries.pop(key)
+                self._bytes -= dropped
+                freed += dropped
+                self.evictions += 1
+                self.w_evictions += 1
+                if cause == "pressure":
+                    self.evictions_pressure += 1
+                    self.w_evictions_pressure += 1
+                else:
+                    self.evictions_capacity += 1
+                    self.w_evictions_capacity += 1
+        return freed
+
+    def clear(self) -> None:
+        with self._lock:
+            self._entries.clear()
+            self._bytes = 0
+
+    def begin_window(self) -> None:
+        """Zero the per-window counters (lifetime totals are kept) —
+        called by the serving layer's `reset_records()` so each exported
+        report window carries its own hit rate."""
+        with self._lock:
+            self.w_hits = 0
+            self.w_misses = 0
+            self.w_evictions = 0
+            self.w_oversize = 0
+            self.w_evictions_capacity = 0
+            self.w_evictions_pressure = 0
+
+    def stats(self) -> Dict[str, Any]:
+        """Counter snapshot (the run report's cache subsections):
+        lifetime totals plus the current window's counters."""
+        with self._lock:
+            lookups = self.hits + self.misses
+            w_lookups = self.w_hits + self.w_misses
+            return {
+                "entries": len(self._entries),
+                "bytes": int(self._bytes),
+                "max_entries": self.max_entries,
+                "max_bytes": int(self.max_bytes),
+                "hits": int(self.hits),
+                "misses": int(self.misses),
+                "evictions": int(self.evictions),
+                "evictions_capacity": int(self.evictions_capacity),
+                "evictions_pressure": int(self.evictions_pressure),
+                "oversize": int(self.oversize),
+                "hit_rate": (
+                    round(self.hits / lookups, 4) if lookups else 0.0
+                ),
+                "window": {
+                    "hits": int(self.w_hits),
+                    "misses": int(self.w_misses),
+                    "evictions": int(self.w_evictions),
+                    "evictions_capacity": int(self.w_evictions_capacity),
+                    "evictions_pressure": int(self.w_evictions_pressure),
+                    "oversize": int(self.w_oversize),
+                    "hit_rate": (
+                        round(self.w_hits / w_lookups, 4)
+                        if w_lookups else 0.0
+                    ),
+                },
+            }
 
 
 class BucketTracker:
@@ -176,3 +358,21 @@ def full_graph_digest(graph) -> str:
         _arr(getattr(graph, "node_weights", None))
         _arr(getattr(graph, "edge_weights", None))
     return h.hexdigest()[:24]
+
+
+def result_cache_key(graph, ctx) -> Tuple[str, str]:
+    """The (graph identity, ctx fingerprint) a cached result is valid
+    for.  The graph identity is the checkpoints' sampling
+    ``graph_fingerprint`` (so the cache and resume agree on the prefix)
+    strengthened with :func:`full_graph_digest` — the sampling
+    fingerprint alone ignores edge weights and interior structure, which
+    a replaying cache cannot afford.  The ctx fingerprint covers seed,
+    k, epsilon, preset and every algorithm knob, and excludes the
+    resilience/debug subtrees — a per-request deadline does not fork the
+    cache key."""
+    from .resilience.checkpoint import ctx_fingerprint, graph_fingerprint
+
+    return (
+        graph_fingerprint(graph) + ":" + full_graph_digest(graph),
+        ctx_fingerprint(ctx),
+    )

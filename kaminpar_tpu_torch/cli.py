@@ -14,12 +14,15 @@ JAX package's, bitwise.
 
 ``--device`` picks where the partition is computed, the card (``cuda``,
 the default) or the CPU; without a card, ``cuda`` exits with an error.
-The flags of modules this package does not have yet (serving, the
-supervisor's heartbeat, live metrics, Chrome traces) are accepted by the
-parser so that the flag set is the JAX CLI's, and using one exits 2
-naming the missing module (ROADMAP.md, Queue 1 item 5).
+``--serve-batch`` serves a JSON batch of requests through the
+PartitionService (serving/), in this process or, with
+``--serve-isolation process``, in a supervised worker on the same
+device; ``--heartbeat-file``, ``--metrics-file`` and ``--trace-out`` (and
+``KAMINPAR_TPU_HEARTBEAT_FILE`` / ``KAMINPAR_TPU_METRICS_FILE``) work as
+in the JAX CLI.
 
 Usage:  python -m kaminpar_tpu_torch <graph> -k 16 [-P preset] [options]
+        python -m kaminpar_tpu_torch --serve-batch BATCH.json [options]
 """
 
 from __future__ import annotations
@@ -46,24 +49,6 @@ from .kaminpar import KaMinPar
 from .presets import create_context_by_preset_name, get_preset_names
 from .utils import timer
 from .utils.logger import OutputLevel
-
-# flags of modules this package does not have yet: (argparse dest, flag,
-# the missing module); using one exits 2
-WAITING_FLAGS = (
-    ("serve_batch", "--serve-batch", "serving/"),
-    ("serve_queue_depth", "--serve-queue-depth", "serving/"),
-    ("serve_cost_cap", "--serve-cost-cap", "serving/"),
-    ("serve_isolation", "--serve-isolation", "serving/"),
-    ("heartbeat_file", "--heartbeat-file", "resilience/supervisor.py"),
-    ("metrics_file", "--metrics-file", "telemetry/metrics.py"),
-    ("trace_out", "--trace-out", "telemetry/chrome_trace.py"),
-)
-# their environment twins, refused the same way
-WAITING_ENV = (
-    ("KAMINPAR_TPU_HEARTBEAT_FILE", "resilience/supervisor.py"),
-    ("KAMINPAR_TPU_METRICS_FILE", "telemetry/metrics.py"),
-)
-
 
 # ---------------------------------------------------------------------------
 # Context <-> plain dict (for -C config files and --dump-config)
@@ -305,12 +290,6 @@ def build_parser() -> argparse.ArgumentParser:
         "--statistics", action="store_true",
         help="collect and print detailed statistics (IFSTATS analog)",
     )
-    p.add_argument(
-        "--trace-out", default=None, metavar="PATH",
-        help="write a Chrome trace-event JSON of the run (open in "
-        "Perfetto / chrome://tracing; one track per process); enables "
-        "telemetry",
-    )
     from . import telemetry
 
     telemetry.add_cli_args(p)
@@ -375,18 +354,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument(
         "--debug-dump-dir", default=None, help="directory for debug dumps"
     )
-    mark_waiting_flags(p)
     return p
-
-
-def mark_waiting_flags(parser: argparse.ArgumentParser) -> None:
-    """Note in each waiting flag's help that it exits 2, and why."""
-    waiting = {dest: module for dest, _, module in WAITING_FLAGS}
-    for action in parser._actions:
-        if action.dest in waiting:
-            action.help += (
-                f" [needs kaminpar_tpu_torch/{waiting[action.dest]}, not "
-                "ported yet: exits 2]")
 
 
 def make_context(args: argparse.Namespace) -> Context:
@@ -440,44 +408,28 @@ def make_context(args: argparse.Namespace) -> Context:
     return ctx
 
 
-def waiting_flag_error(args: argparse.Namespace) -> Optional[str]:
-    """The error for a flag (or its environment variable) whose module
-    this package does not have yet; None when none is used (the dcli's
-    parser has a subset of the flags)."""
-    for dest, flag, module in WAITING_FLAGS:
-        if getattr(args, dest, None) is not None:
-            return _waiting(flag, module)
-    for var, module in WAITING_ENV:
-        if os.environ.get(var):
-            return _waiting(var, module)
-    return None
-
-
-def _waiting(what: str, module: str) -> str:
-    return (f"error: {what} needs kaminpar_tpu_torch/{module}, which is "
-            "not ported yet (ROADMAP.md, Queue 1 item 5)")
-
-
 def main(argv: Optional[List[str]] = None) -> int:
     args = build_parser().parse_args(argv)
-    waiting = waiting_flag_error(args)
-    if waiting:
-        print(waiting, file=sys.stderr)
-        return 2
     ctx = make_context(args)
 
     if args.dump_config:
         print("\n".join(dump_toml(context_to_dict(ctx))))
         return 0
 
-    if args.graph is None:
-        print("error: no graph file given", file=sys.stderr)
-        return 1
-    if args.k is None and args.max_block_weights is None:
-        print("error: need -k or -B/--max-block-weights",
-              file=sys.stderr)
-        return 1
+    if args.serve_batch is None:
+        if args.graph is None:
+            print("error: no graph file given", file=sys.stderr)
+            return 1
+        if args.k is None and args.max_block_weights is None:
+            print("error: need -k or -B/--max-block-weights",
+                  file=sys.stderr)
+            return 1
     if args.delta_batch is not None:
+        if args.serve_batch is not None:
+            print("error: --delta-batch and --serve-batch are mutually "
+                  "exclusive (session requests inside a batch spec "
+                  "cover the serve-mode story)", file=sys.stderr)
+            return 2
         if args.k is None:
             print("error: --delta-batch needs -k", file=sys.stderr)
             return 2
@@ -510,6 +462,21 @@ def main(argv: Optional[List[str]] = None) -> int:
     from .resilience import deadline as deadline_mod
 
     deadline_mod.install_signal_handlers()
+
+    # liveness heartbeat (resilience/supervisor.py): configured before
+    # any long-running work so the first barrier already advances the
+    # file external supervisors watch
+    if args.heartbeat_file:
+        from .resilience import supervisor as supervisor_mod
+
+        supervisor_mod.set_heartbeat(args.heartbeat_file)
+
+    # live metrics export (telemetry/metrics.py): armed before the run so
+    # the cadence thread publishes scrapes while work is in flight (also
+    # from KAMINPAR_TPU_METRICS_FILE; dormant when neither names a file)
+    from .telemetry import metrics as metrics_mod
+
+    metrics_mod.configure(args.metrics_file)
 
     from . import telemetry
     from .utils import heap_profiler, statistics
@@ -545,6 +512,14 @@ def main(argv: Optional[List[str]] = None) -> int:
                 f"FAULTS plan={fault_plan} (fault injection ACTIVE; "
                 "see the report's 'faults' section)"
             )
+
+    if args.serve_batch is not None:
+        # serve/batch mode: the serving layer owns the request loop
+        # (admission, isolation, caching, drain) and the report export;
+        # the signal handlers above make SIGTERM/SIGINT drain the queue
+        from .serving.batch import run_batch_cli
+
+        return run_batch_cli(args, ctx)
 
     t_io = time.perf_counter()
     external_mode = ctx.partitioning.mode == PartitioningMode.EXTERNAL

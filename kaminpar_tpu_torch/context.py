@@ -427,8 +427,9 @@ class ResilienceContext:
     checked at the pipeline barriers, after which the run winds down to a
     gate-valid partition annotated `anytime: true`; `budget_grace` is the
     declared wind-down allowance on top of it (reported, not enforced).
-    `hard_deadline_factor` is accepted for parity with the JAX package
-    and inert here: this package has no hard wall-clock watchdog.
+    `hard_deadline_factor` arms the hard wall-clock watchdog of a
+    budgeted run at max(factor * budget, budget + grace) seconds
+    (resilience/supervisor.py; 0 arms nothing).
     `memory_budget` is a declared device-memory budget in bytes (0 = take
     KAMINPAR_TPU_HBM_BYTES, unset = none), which the memory governor
     enforces (resilience/memory.py) and the external scheme sizes its

@@ -5,9 +5,10 @@ dKaMinPar binary analog, apps/dKaMinPar.cc).
 process drives (parallel/mesh.py); ``--device`` picks where they run, the
 card (``cuda``, the default) or the CPU.  Every flag of the JAX package's
 dcli is here.  ``--comm-table`` prints this package's per-call collective
-account.  The flags of modules this package does not have yet (serving,
-the supervisor's heartbeat, live metrics, Chrome traces) exit 2 naming
-the missing module, and the shared-memory-only flags (``--scheme``,
+account.  ``--heartbeat-file``, ``--metrics-file`` (the per-call
+collective bytes and calls among the metrics) and ``--trace-out`` work as
+in the JAX dcli; the serving flags (``--serve-batch``,
+``--serve-isolation``) and the shared-memory-only flags (``--scheme``,
 ``--delta-batch``, ``--dynamic-replicas``) exit 2 pointing at the shm CLI,
 as in the JAX package.
 
@@ -101,7 +102,7 @@ def build_parser() -> argparse.ArgumentParser:
         "skewed graphs; sort2 needs CSR row spans and is shm-only)",
     )
     p.add_argument("--serve-batch", default=None, metavar="BATCH.json",
-                   help="serve/batch mode")
+                   help="serve/batch mode runs on the shm CLI")
     p.add_argument("--scheme", default=None, choices=["external"],
                    help="the out-of-core scheme is served by the shm CLI")
     p.add_argument("--delta-batch", default=None, metavar="DELTAS.json",
@@ -111,18 +112,21 @@ def build_parser() -> argparse.ArgumentParser:
                    help="the replica race belongs to the shm dynamic CLI")
     p.add_argument("--serve-isolation", default=None,
                    choices=["inproc", "process"],
-                   help="supervised worker execution (serving)")
+                   help="supervised worker execution belongs to the shm "
+                   "serving CLI")
     p.add_argument("--heartbeat-file", default=None, metavar="PATH",
-                   help="touch PATH at every dist pipeline barrier")
+                   help="touch PATH's mtime at every dist pipeline "
+                   "barrier (and from the watchdog tick while nothing is "
+                   "hung), so external supervisors can tell "
+                   "slow-but-alive from hung")
     p.add_argument("--metrics-file", default=None, metavar="PATH",
-                   help="export live metrics to PATH (Prometheus text)")
-    p.add_argument("--trace-out", default=None, metavar="PATH",
-                   help="write a Chrome trace-event JSON of the run")
+                   help="export live metrics (per-phase collective bytes "
+                   "and calls among them) to PATH in Prometheus text "
+                   "format on a cadence (also via "
+                   "KAMINPAR_TPU_METRICS_FILE)")
     from . import telemetry
-    from .cli import mark_waiting_flags
 
     telemetry.add_cli_args(p)
-    mark_waiting_flags(p)
     return p
 
 
@@ -138,12 +142,23 @@ def main(argv: Optional[List[str]] = None) -> int:
               "use `python -m kaminpar_tpu_torch GRAPH -k K --delta-batch "
               "DELTAS.json [--dynamic-replicas G]`", file=sys.stderr)
         return 2
-    from .cli import waiting_flag_error
-
-    waiting = waiting_flag_error(args)
-    if waiting:
-        print(waiting, file=sys.stderr)
+    if args.serve_batch is not None:
+        print("error: serve/batch mode runs on the shm pipeline — use "
+              "`python -m kaminpar_tpu_torch --serve-batch BATCH.json`",
+              file=sys.stderr)
         return 2
+    if args.serve_isolation is not None:
+        print("error: supervised worker isolation is a serving-layer "
+              "mode — use `python -m kaminpar_tpu_torch --serve-batch "
+              "BATCH.json --serve-isolation process`", file=sys.stderr)
+        return 2
+    if args.heartbeat_file:
+        from .resilience import supervisor as supervisor_mod
+
+        supervisor_mod.set_heartbeat(args.heartbeat_file)
+    from .telemetry import metrics as metrics_mod
+
+    metrics_mod.configure(args.metrics_file)
     if args.graph is None:
         print("error: no graph file given", file=sys.stderr)
         return 1

@@ -66,6 +66,7 @@ from .resilience import deadline as deadline_mod
 from .resilience import gate
 from .resilience import integrity as integrity_mod
 from .resilience import memory as mem_mod
+from .resilience import supervisor as sup_mod
 from .resilience.policy import with_fallback
 from .utils import heap_profiler, statistics
 from .utils import rng as rng_mod
@@ -227,6 +228,11 @@ class KaMinPar:
         mgr = None
         res_ctx = ctx.resilience
         self.last_anytime = None
+        # the hard wall-clock watchdog (resilience/supervisor.py): when a
+        # ceiling resolves (the environment's, or the factor times a
+        # budget) the partitioning block runs under an armed stage that
+        # turns an overrun into a StageHang; None arms nothing
+        hard_ceiling_s = None
         if owns_stream:
             ckpt_mod.deactivate()
             deadline_mod.begin_run(res_ctx.time_budget or None,
@@ -237,6 +243,9 @@ class KaMinPar:
                 ckpt_mod.activate(mgr)
             # the governor prices the whole graph
             mem_mod.begin_run(graph, ctx, self.device)
+            hard_ceiling_s = sup_mod.hard_ceiling(
+                res_ctx.time_budget, res_ctx.budget_grace,
+                res_ctx.hard_deadline_factor)
         else:
             ckpt_mod.suspend()
         debug.dump_toplevel_graph(ctx, graph)
@@ -248,7 +257,8 @@ class KaMinPar:
                              else self._explicit_level)
             if self.output_level >= OutputLevel.APPLICATION:
                 self._print_context_summary(graph, ctx)
-            with timer.scoped_timer("partitioning"), \
+            with sup_mod.stage_guard("partition", hard_ceiling_s), \
+                    timer.scoped_timer("partitioning"), \
                     heap_profiler.scoped_heap_profiler("partitioning"):
                 resumed = (mgr.take_result_resume() if mgr is not None
                            else None)

@@ -26,6 +26,7 @@ ported.
 
 from __future__ import annotations
 
+import time
 from typing import Dict, List, Optional, Tuple, Union
 
 import numpy as np
@@ -167,6 +168,7 @@ class dKaMinPar:
         from ..resilience import checkpoint as ckpt_mod
         from ..resilience import deadline as deadline_mod
         from ..resilience import memory as memory_mod
+        from ..resilience import supervisor as supervisor_mod
         from ..utils.logger import output_level, set_output_level
         from .dist_graph import shard_fingerprints, shard_sizes
 
@@ -175,6 +177,9 @@ class dKaMinPar:
         owns_stream = timer.GLOBAL_TIMER.idle()
         mgr = None
         res_ctx = ctx.shm.resilience
+        t_run0 = time.perf_counter()
+        # the hard wall-clock watchdog, armed as the shm facade arms it
+        hard_ceiling_s = None
         if owns_stream:
             timer.GLOBAL_TIMER.reset()
             telemetry.reset()
@@ -214,6 +219,9 @@ class dKaMinPar:
                                  price_shape=(n_loc, m_loc))
             memory_mod.register_spiller(self)
             memory_mod.preflight(n_loc, m_loc, k, where="dist")
+            hard_ceiling_s = supervisor_mod.hard_ceiling(
+                res_ctx.time_budget, res_ctx.budget_grace,
+                res_ctx.hard_deadline_factor)
             agreement_mod.arm(
                 "dist", ckpt_mod.graph_fingerprint(graph),
                 ckpt_mod.ctx_fingerprint(ctx), self._shard_fps,
@@ -222,7 +230,9 @@ class dKaMinPar:
         prior_level = output_level()
         try:
             set_output_level(getattr(self, "_output_level", prior_level))
-            with timer.scoped_timer("dist-partitioning", sync=self.device):
+            with supervisor_mod.stage_guard("partition", hard_ceiling_s), \
+                    timer.scoped_timer("dist-partitioning",
+                                       sync=self.device):
                 resumed = (mgr.take_result_resume() if mgr is not None
                            else None)
                 if resumed is not None and resumed.shape == (graph.n,):
@@ -255,6 +265,18 @@ class dKaMinPar:
                 f"RESULT cut={cut} imbalance={imbalance:.6f} "
                 f"k={k} devices={self.mesh.size}"
             )
+            # request tracing (telemetry/tracing.py): a served request
+            # that drove this compute gets a rank-annotated span
+            from ..telemetry import tracing
+
+            tid = tracing.current()
+            if tid:
+                tracing.span(
+                    tid, "dist-compute", start=t_run0,
+                    duration_s=time.perf_counter() - t_run0,
+                    origin="dist", rank=agreement_mod.process_index(),
+                    devices=int(self.mesh.size), k=int(k),
+                )
         finally:
             set_output_level(prior_level)
             if owns_stream:

@@ -270,6 +270,20 @@ def account_collective(op: str, nbytes: int, shape=None) -> None:
     if entry is None:
         entry = c.log[key] = [0, int(nbytes)]
     entry[0] += 1
+    from ..telemetry import metrics
+
+    if metrics.enabled():
+        metrics.inc(
+            "kmp_comm_bytes_total",
+            "Collective payload bytes per device, by phase (per-call "
+            "account; see COMM_CAVEAT).",
+            value=int(nbytes), phase=key[0],
+        )
+        metrics.inc(
+            "kmp_comm_calls_total",
+            "Collective calls, by phase (per-call account).",
+            phase=key[0],
+        )
 
 
 def reset_comm_log() -> None:

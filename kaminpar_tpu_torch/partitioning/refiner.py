@@ -33,7 +33,7 @@ from ..resilience import deadline as deadline_mod
 from ..resilience import integrity as integrity_mod
 from ..resilience.faults import maybe_inject
 from ..resilience.policy import with_fallback
-from ..utils import statistics
+from ..utils import statistics, timer
 from .. import telemetry
 
 
@@ -140,26 +140,30 @@ class RefinerPipeline:
                    min_block_weights, salt, seed, level, num_levels):
         """One refinement algorithm as a partition -> partition closure
         (the unit the degradation contract wraps); None: skipped."""
+        # each step runs in a timer scope named as the JAX package's
         if algorithm == RefinementAlgorithm.LABEL_PROPAGATION:
             def step(partition):
-                return lp_refine(graph, partition, k, max_block_weights,
-                                 salt, self._lp_cfg)
+                with timer.scoped_timer("lp-refinement"):
+                    return lp_refine(graph, partition, k,
+                                     max_block_weights, salt, self._lp_cfg)
         elif algorithm == RefinementAlgorithm.OVERLOAD_BALANCER:
             def step(partition):
-                return balancer_ops.overload_balance(
-                    graph, partition, k, max_block_weights, salt,
-                    max_rounds=self.ctx.refinement.balancer.max_rounds,
-                )
+                with timer.scoped_timer("overload-balancer"):
+                    return balancer_ops.overload_balance(
+                        graph, partition, k, max_block_weights, salt,
+                        max_rounds=self.ctx.refinement.balancer.max_rounds,
+                    )
         elif algorithm == RefinementAlgorithm.UNDERLOAD_BALANCER:
             if min_block_weights is None:
                 return None
 
             def step(partition):
-                return balancer_ops.underload_balance(
-                    graph, partition, k, max_block_weights,
-                    min_block_weights, salt,
-                    max_rounds=self.ctx.refinement.balancer.max_rounds,
-                )
+                with timer.scoped_timer("underload-balancer"):
+                    return balancer_ops.underload_balance(
+                        graph, partition, k, max_block_weights,
+                        min_block_weights, salt,
+                        max_rounds=self.ctx.refinement.balancer.max_rounds,
+                    )
         elif algorithm == RefinementAlgorithm.JET:
             jet_ctx = self.ctx.refinement.jet
             if self.light:
@@ -170,10 +174,11 @@ class RefinerPipeline:
                 )
 
             def step(partition):
-                return jet_refine(
-                    graph, partition, k, max_block_weights, salt, jet_ctx,
-                    level=level, num_levels=num_levels,
-                )
+                with timer.scoped_timer("jet"):
+                    return jet_refine(
+                        graph, partition, k, max_block_weights, salt,
+                        jet_ctx, level=level, num_levels=num_levels,
+                    )
         elif algorithm == RefinementAlgorithm.GREEDY_FM:
             # FM earns its host round trip on the finest levels only;
             # light intermediate extensions skip it, as they skip full Jet
@@ -182,24 +187,26 @@ class RefinerPipeline:
 
             def step(partition):
                 # host refiners see the real k, not the padded bucket
-                return fm_refine_host(
-                    graph, partition, self.k,
-                    max_block_weights[: self.k], self.ctx.refinement.fm,
-                    seed=seed, threads=self.ctx.parallel.num_workers,
-                )
+                with timer.scoped_timer("kway-fm"):
+                    return fm_refine_host(
+                        graph, partition, self.k,
+                        max_block_weights[: self.k], self.ctx.refinement.fm,
+                        seed=seed, threads=self.ctx.parallel.num_workers,
+                    )
         elif algorithm == RefinementAlgorithm.MTKAHYPAR:
             def step(partition):
-                host = host_graph_from_device(graph)
-                refined = mtkahypar_refine_host(
-                    host, partition[: host.n].cpu().numpy(), self.k,
-                    max_block_weights=max_block_weights[: self.k].cpu()
-                    .numpy(),
-                    epsilon=self.ctx.partition.epsilon, seed=seed,
-                    threads=self.ctx.parallel.num_workers,
-                )
-                full = torch.zeros(graph.n_pad, dtype=torch.int32)
-                full[: host.n] = torch.from_numpy(refined)
-                return full.to(graph.device)
+                with timer.scoped_timer("mtkahypar"):
+                    host = host_graph_from_device(graph)
+                    refined = mtkahypar_refine_host(
+                        host, partition[: host.n].cpu().numpy(), self.k,
+                        max_block_weights=max_block_weights[: self.k]
+                        .cpu().numpy(),
+                        epsilon=self.ctx.partition.epsilon, seed=seed,
+                        threads=self.ctx.parallel.num_workers,
+                    )
+                    full = torch.zeros(graph.n_pad, dtype=torch.int32)
+                    full[: host.n] = torch.from_numpy(refined)
+                    return full.to(graph.device)
         else:
             raise ValueError(f"unknown refinement algorithm: {algorithm!r}")
         return step

@@ -1,7 +1,6 @@
 """Graceful degradation, fault injection, checkpoints and deadlines, the
-memory governor, the integrity sentinels and the strict-balance gate (own
-copy of kaminpar_tpu/resilience/, less the serving supervisor and the
-distributed agreement):
+memory governor, the integrity sentinels, the strict-balance gate, the
+dist agreement and the supervisor (own copy of kaminpar_tpu/resilience/):
 
   * the **degradation contract**: structured exceptions (errors.py) and
     :func:`with_fallback` with its per-site circuit breaker (policy.py);
@@ -11,7 +10,9 @@ distributed agreement):
     the **deadline budget / anytime contract** (deadline.py);
   * the **memory governor** and its recovery ladder (memory.py);
   * the **integrity sentinels** and the retry ladder (integrity.py);
-  * the **strict-balance output gate** (gate.py).
+  * the **strict-balance output gate** (gate.py);
+  * the **hard watchdog, heartbeats and supervised workers**
+    (supervisor.py).
 """
 
 from .errors import (  # noqa: F401
@@ -54,12 +55,14 @@ from . import integrity  # noqa: F401
 from . import checkpoint  # noqa: F401
 from . import deadline  # noqa: F401
 from . import memory  # noqa: F401
+from . import supervisor  # noqa: F401
 
 
 def reset() -> None:
     """Reset injection counters, circuit breakers, integrity counters, the
-    active checkpoint manager, any armed deadline and the dist agreement
-    state (sentinels, gather override) (test isolation)."""
+    active checkpoint manager, any armed deadline, the dist agreement
+    state (sentinels, gather override) and the supervision watchdog and
+    heartbeat (test isolation)."""
     from . import agreement
     from . import faults as _faults
 
@@ -70,3 +73,4 @@ def reset() -> None:
     deadline.clear()
     agreement.disarm()
     agreement.set_gather_override(None)
+    supervisor.reset()

@@ -54,26 +54,38 @@ def set_gather_override(
     _gather_override = fn
 
 
+def process_index() -> int:
+    """This process's index among the run's processes: 0, since one
+    process drives every shard of the mesh (parallel/mesh.py)."""
+    return 0
+
+
+def process_count() -> int:
+    """The run's process count: 1 (see :func:`process_index`)."""
+    return 1
+
+
 def rank() -> int:
-    """This process's rank: the SIM override when set, else 0."""
+    """This process's rank: the SIM override when set, else its
+    :func:`process_index`."""
     raw = os.environ.get(ENV_SIM_RANK, "")
     if raw:
         try:
             return int(raw)
         except ValueError:
             pass
-    return 0
+    return process_index()
 
 
 def num_ranks() -> int:
-    """Fleet size: the SIM override when set, else 1."""
+    """Fleet size: the SIM override when set, else the process count."""
     raw = os.environ.get(ENV_SIM_RANKS, "")
     if raw:
         try:
             return max(1, int(raw))
         except ValueError:
             pass
-    return 1
+    return process_count()
 
 
 def gather_i64(row) -> np.ndarray:

@@ -181,6 +181,12 @@ def barrier(
         from . import memory as memory_mod
 
         memory_mod.on_barrier(stage_id)
+        # liveness heartbeat (resilience/supervisor.py): barrier
+        # crossings are the pipeline's proof of progress; one attribute
+        # read when no heartbeat file is configured
+        from . import supervisor as supervisor_mod
+
+        supervisor_mod.heartbeat_touch()
         stop_at = os.environ.get(STOP_AT_ENV, "")
         if stop_at:
             hard = stop_at.endswith("!")

@@ -13,9 +13,9 @@ the stage reached (``KaMinPar.last_anytime``).  SIGTERM/SIGINT, once
 delivery of the signal restores its old handler.
 
 The state lives on the per-run :class:`~.runstate.RunState`; signals are
-process-wide.  ``hard_deadline_factor`` is accepted and inert: the hard
-watchdog (the JAX package's resilience/supervisor.py) is not part of
-this package.
+process-wide.  The budget cannot interrupt a launch that never returns:
+the hard wall-clock watchdog (resilience/supervisor.py), armed at
+``hard_deadline_factor`` times the budget, is the backstop.
 """
 
 from __future__ import annotations
@@ -40,10 +40,10 @@ def install_budget(budget_s: float, grace_s: Optional[float] = None,
                    hard_factor: Optional[float] = None) -> None:
     """Arm a fresh deadline ``budget_s`` seconds from now on the calling
     thread's run.  The budget is cooperative: it is checked between
-    kernel launches at the pipeline barriers.  ``hard_factor`` (the
-    context's ``hard_deadline_factor``) is accepted and inert: this
-    package has no hard wall-clock watchdog."""
-    del hard_factor
+    kernel launches at the pipeline barriers.  When a hard ceiling is
+    armed for it (``hard_factor``, the context's
+    ``hard_deadline_factor``, or KAMINPAR_TPU_HARD_DEADLINE_S), a
+    ``watchdog-armed`` event records the ceiling."""
     run = runstate.current()
     run.budget_s = float(budget_s)
     run.grace_s = float(grace_s) if grace_s is not None else DEFAULT_GRACE_S
@@ -52,6 +52,18 @@ def install_budget(budget_s: float, grace_s: Optional[float] = None,
     run.stop = False
     run.reason = ""
     run.announced = False
+    from . import supervisor
+
+    ceiling = supervisor.hard_ceiling(run.budget_s, run.grace_s,
+                                      hard_factor)
+    if ceiling is not None:
+        from .. import telemetry
+
+        telemetry.event(
+            "watchdog-armed",
+            ceiling_s=round(ceiling, 3),
+            budget_s=run.budget_s,
+        )
 
 
 def clear() -> None:

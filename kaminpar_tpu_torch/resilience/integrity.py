@@ -430,6 +430,30 @@ def note_digest_mismatch(what: str, detail: str, *,
 # ---------------------------------------------------------------------------
 
 
+def chaos_flip_array(site: str, arr: np.ndarray, *,
+                     bit: int = 7) -> np.ndarray:
+    """Injection hook for in-flight array corruption: when the fault
+    plan fires at ``site``, return a copy with one bit of element 0
+    flipped (a genuine mutation — the DETECTORS are what chaos tests);
+    otherwise return ``arr`` unchanged.  Never raises."""
+    from . import faults
+
+    try:
+        faults.maybe_inject(site)
+    except IntegrityViolation:
+        out = np.array(arr, copy=True)
+        flat = out.reshape(-1)
+        flat[0] = flat[0] ^ type(flat[0])(1 << bit)
+        from .. import telemetry
+
+        telemetry.event(
+            "integrity", action="chaos-corrupt", site=site,
+            kind="array", bit=bit,
+        )
+        return out
+    return arr
+
+
 def chaos_corrupt_contraction(coarse):
     """``bit-flip:contraction`` chaos: when the fault plan fires, flip bit
     5 of the first coarse edge-weight slot.  The edge-weight conservation

@@ -173,6 +173,14 @@ def min_streamable_bytes(n: int, k: int) -> int:
     return estimate_stream_bytes(n, 1 << 15, k)
 
 
+def min_serveable_bytes(n: int, m: int, k: int) -> int:
+    """The smallest budget a request can be served device-resident under
+    (the rung-2 spilled-hierarchy estimate): the serving admission rule
+    (``insufficient-memory``); a single run still degrades through every
+    rung."""
+    return estimate_rung_bytes(RUNG_SPILL_HIERARCHY, n, m, k)
+
+
 # ---------------------------------------------------------------------------
 # budget + per-run governor state
 # ---------------------------------------------------------------------------
@@ -337,6 +345,36 @@ def note_reload(nbytes: int) -> None:
         st.reload_bytes += int(nbytes)
 
 
+# ---------------------------------------------------------------------------
+# cache shedding
+# ---------------------------------------------------------------------------
+
+#: Weakly held BoundedCaches the governor may shed under pressure (the
+#: serving result cache registers itself).
+_shed_targets: "weakref.WeakSet" = weakref.WeakSet()
+
+
+def register_shed_target(cache: Any) -> None:
+    """Register a BoundedCache-shaped object (``evict_to(target_bytes)``)
+    for pressure shedding.  Weak: caches die with their owners."""
+    _shed_targets.add(cache)
+
+
+def shed_caches(target_bytes: int = 0) -> int:
+    """Evict every registered cache down to ``target_bytes`` (cause
+    "pressure"); returns the cache bytes freed."""
+    freed = 0
+    for cache in list(_shed_targets):
+        try:
+            freed += int(cache.evict_to(target_bytes, cause="pressure"))
+        except Exception:
+            continue
+    st = state()
+    if st is not None:
+        st.shed_bytes += freed
+    return freed
+
+
 def live_device_bytes(device: Any = None) -> int:
     """Bytes the caching allocator holds in live tensors on the card, as
     the heap profiler reads them (0 for a run on the CPU)."""
@@ -369,7 +407,7 @@ def on_barrier(stage: str) -> None:
         return
     st.pressure_events += 1
     st.engaged = True
-    freed = 0  # this package keeps no sheddable caches
+    freed = shed_caches(0)
     spilled = 0
     spiller = st.spiller() if st.spiller is not None else None
     if spiller is not None:
@@ -469,6 +507,7 @@ def _recover(st: GovernorState, depth: int) -> None:
     from ..utils import timer
 
     timer.GLOBAL_TIMER.unwind_to(depth)
+    shed_caches(0)
     gc.collect()
     dev = st.device
     if dev is not None and getattr(dev, "type", "cpu") == "cuda":

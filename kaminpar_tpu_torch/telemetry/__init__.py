@@ -271,7 +271,14 @@ def gate_verdict() -> Any:
 
 
 def add_cli_args(parser) -> None:
-    """The --report-json and --diff-* flags of a command line."""
+    """The --trace-out, --report-json and --diff-* flags of a command
+    line."""
+    parser.add_argument(
+        "--trace-out", default=None, metavar="PATH",
+        help="write a Chrome trace-event JSON of the run (open in "
+        "Perfetto / chrome://tracing; one track per process and per "
+        "served request); enables telemetry",
+    )
     parser.add_argument(
         "--report-json", default=None, metavar="PATH",
         help="write the per-run JSON report (scope tree, result metrics, "
@@ -297,8 +304,8 @@ def add_cli_args(parser) -> None:
 
 
 def enable_if_requested(args) -> None:
-    """Enable telemetry when the report flag was given."""
-    if getattr(args, "report_json", None):
+    """Enable telemetry when either output flag was given."""
+    if getattr(args, "trace_out", None) or getattr(args, "report_json", None):
         enable()
 
 
@@ -306,6 +313,12 @@ def export_cli_outputs(args, extra_run=None, quiet: bool = False) -> int:
     """Write the files requested via add_cli_args (no-op without flags).
     Returns a process exit code: 0 normally; with --diff-base, the
     telemetry.diff verdict against the baseline report."""
+    if getattr(args, "trace_out", None):
+        from .chrome_trace import write_chrome_trace
+
+        write_chrome_trace(args.trace_out)
+        if not quiet:
+            print(f"TRACE written to {args.trace_out} (open in Perfetto)")
     if getattr(args, "report_json", None):
         from .report import write_run_report
 

@@ -13,10 +13,13 @@ plan and every injected fault), `checkpoint`, `anytime` and
 counters).  `counters` holds the statistics counters (utils/statistics.py)
 when they are enabled, `heap` the heap profiler's tree when it is, and
 `dynamic` the delta-chain section that a chain's caller annotates
-(dynamic/driver.summarize).  Sections fed by modules this package does
-not have (serving, distributed runs, supervision, collectives, request
-tracing, the execution ledger, the quality observatory) carry the JAX
-package's well-formed disabled defaults.  There is no XLA compile
+(dynamic/driver.summarize).  `serving` and `supervision` come from the
+serving layer (serving/service.py annotates them after a batch;
+otherwise `supervision` is read from resilience/supervisor.py), `tracing`
+from telemetry/tracing.py, `comm` and `dist_resilience` from the dist
+driver.  Sections fed by modules this package does not have yet (the
+execution ledger, the quality observatory) carry the JAX package's
+well-formed disabled defaults.  There is no XLA compile
 step: `compile` is the disabled default and says so, and `perf` holds
 what the card has instead, each hand-written kernel's launches (and
 CUDA-event milliseconds where `_native.EVENT_LOG` was set) and the
@@ -162,6 +165,7 @@ def build_run_report(extra_run: Optional[dict] = None) -> dict:
 
     from ..resilience import faults, integrity
     from ..resilience.errors import CollectiveTimeout
+    from . import tracing
     from ..resilience.policy import with_fallback
 
     info = _run_info()
@@ -178,6 +182,18 @@ def build_run_report(extra_run: Optional[dict] = None) -> dict:
     dynamic = info.pop("dynamic", {"enabled": False})
     # the dist driver's audit trail (parallel/dist_partitioner.py)
     dist_resilience = info.pop("dist_resilience", {"enabled": False})
+    # the serving layer's verdicts, admission, cache and latency
+    # statistics (serving/service.py annotates them after a batch)
+    serving = info.pop("serving", {"enabled": False})
+    # the supervision audit trail: the serving layer annotates its
+    # pool-aware view; otherwise the module state is read (a single run
+    # with a heartbeat or an armed watchdog still reports), and a run
+    # that configured nothing carries the disabled default
+    supervision = info.pop("supervision", None)
+    if supervision is None:
+        from ..resilience import supervisor
+
+        supervision = supervisor.summary()
     run = dict(info)
     if extra_run:
         run.update({k: jsonable(v) for k, v in extra_run.items()})
@@ -242,16 +258,16 @@ def build_run_report(extra_run: Optional[dict] = None) -> dict:
         "compile": {"caveat": COMPILE_CAVEAT, "totals": {}, "phases": {}},
         "checkpoint": ckpt_summary,
         "anytime": anytime,
-        "serving": {"enabled": False},
+        "serving": serving,
         "perf": _perf_section(levels),
         "memory_budget": memory_budget,
         "quality": {"enabled": False,
                     "caveat": "quality observatory unavailable"},
         "dist_resilience": dist_resilience,
         "external": external,
-        "supervision": {"enabled": False},
+        "supervision": supervision,
         "dynamic": dynamic,
-        "tracing": {"enabled": False, "traces": []},
+        "tracing": tracing.snapshot(),
         "ledger": {"enabled": False,
                    "caveat": "execution ledger unavailable"},
         "integrity": integrity.summary(),

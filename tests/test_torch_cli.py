@@ -5,14 +5,16 @@ checkpoint fingerprint) and each package's dump loads in the other's
 the JAX CLI's (with a config file, a refinement override, `-B`,
 `--min-epsilon` and `--node-ordering degree-buckets`); `--machine-timers`
 prints the deep scheme's phases; `--delta-batch` writes the JAX chain's
-final partition; every flag whose module is not ported yet exits 2
-naming the module; and without a card the default `--device cuda` fails.
+final partition; each serving, heartbeat, metrics and trace flag and
+variable gives the JAX CLI's records and files; and without a card the
+default `--device cuda` fails.
 
 Both CLIs run in this process on `gen:` graphs, the port's with
 `--device cpu`.
 """
 
 import json
+import os
 import signal
 import subprocess
 import sys
@@ -30,6 +32,8 @@ from kaminpar_tpu.presets import create_context_by_preset_name as jax_preset
 from kaminpar_tpu.resilience.checkpoint import (
     ctx_fingerprint as jax_ctx_fingerprint,
 )
+from kaminpar_tpu.telemetry import metrics as jmetrics
+from kaminpar_tpu.telemetry import tracing as jtracing
 from kaminpar_tpu.utils import heap_profiler as jheap
 from kaminpar_tpu.utils import statistics as jstats
 from kaminpar_tpu_torch import cli as tcli
@@ -43,6 +47,8 @@ from kaminpar_tpu_torch.presets import (
 from kaminpar_tpu_torch.resilience.checkpoint import (
     ctx_fingerprint as port_ctx_fingerprint,
 )
+from kaminpar_tpu_torch.telemetry import metrics as tmetrics
+from kaminpar_tpu_torch.telemetry import tracing as ttracing
 from kaminpar_tpu_torch.telemetry.report import validate_report
 from kaminpar_tpu_torch.utils import timer as ttimer
 from kaminpar_tpu_torch.utils import heap_profiler as theap
@@ -64,13 +70,21 @@ def _clean(monkeypatch):
         monkeypatch.delenv(var, raising=False)
     handlers = {s: signal.getsignal(s) for s in (signal.SIGINT,
                                                  signal.SIGTERM)}
+    # live metrics and request traces are process-wide stores that other
+    # test files may leave filled
+    for mod in (jmetrics, tmetrics):
+        mod.reset()
+    for mod in (jtracing, ttracing):
+        mod.reset_traces()
     yield
     for s, h in handlers.items():
         signal.signal(s, h)
     for mod in (jstats, tstats, jheap, theap, jtel, ttel):
         mod.disable()
-    for mod in (jres, tres, jtel, ttel):
+    for mod in (jres, tres, jtel, ttel, jmetrics, tmetrics):
         mod.reset()
+    for mod in (jtracing, ttracing):
+        mod.reset_traces()
 
 
 def run(main, argv, capsys):
@@ -249,29 +263,103 @@ def test_delta_batch_refusals_are_the_jax_clis(argv, tmp_path, capsys):
 
 
 # ---------------------------------------------------------------------------
-# flags that wait for a module, and the device rule
+# serving, heartbeat, live metrics and Chrome traces; the device rule
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("dest,flag,module", tcli.WAITING_FLAGS)
-def test_waiting_flags_exit_2_naming_their_module(dest, flag, module,
-                                                  capsys):
-    value = {"--serve-queue-depth": "4", "--serve-cost-cap": "1e9",
-             "--serve-isolation": "inproc"}.get(flag, "x")
-    rc, _, err = run(tcli.main, [GRAPH, "-k", "2", "--device", "cpu",
-                                 flag, value], capsys)
-    assert rc == 2
-    assert module in err and "Queue 1 item 5" in err and flag in err
-    # the JAX CLI's parser takes the same flag and value
-    jcli.build_parser().parse_args([GRAPH, "-k", "2", flag, value])
+def serve_setup(tmp_path, traced):
+    """A batch spec (a request, its duplicate, a k=0 request) and the
+    base flags, chosen so the JAX compiles of this file are shared: the
+    output-file cases' graph, config and refiners, or, for a run with
+    telemetry on, the delta-batch case's graph and k."""
+    graph, k, base = CHAIN_GRAPH, 4, []
+    if not traced:
+        cfg = tmp_path / "cfg.toml"
+        cfg.write_text("seed = 7\n[coarsening]\ncontraction_limit = 160\n")
+        graph, k = GRAPH, 8
+        base = ["-C", str(cfg), "--refinement",
+                "overload-balancer;lp;underload-balancer"]
+    batch = tmp_path / "batch.json"
+    batch.write_text(json.dumps({"requests": [
+        {"graph": graph, "k": k, "seed": 1, "id": "a"},
+        {"graph": graph, "k": k, "seed": 1, "id": "a-again"},
+        {"graph": graph, "k": 0, "id": "k0"}]}))
+    return str(batch), base
 
 
-@pytest.mark.parametrize("var,module", tcli.WAITING_ENV)
-def test_waiting_env_vars_exit_2(var, module, monkeypatch, capsys):
-    monkeypatch.setenv(var, "somewhere")
-    rc, _, err = run(tcli.main, [GRAPH, "-k", "2", "--device", "cpu"],
-                     capsys)
-    assert rc == 2 and module in err and var in err
+def served_lines(out):
+    """The SERVED records of a batch, their walls left out."""
+    return [" ".join(t for t in ln.split() if not t.startswith("wall="))
+            for ln in out.splitlines() if ln.startswith("SERVED ")]
+
+
+def metric_names(path):
+    return {ln.split()[2] for ln in open(path).read().splitlines()
+            if ln.startswith("# TYPE ")}
+
+
+def trace_tracks(path):
+    data = json.loads(open(path).read())
+    return {(e["pid"], e["tid"], e["args"]["name"])
+            for e in data["traceEvents"] if e["ph"] == "M"}
+
+
+SERVING_CASES = [
+    ("--serve-batch", None), ("--serve-queue-depth", "1"),
+    ("--serve-cost-cap", "1000"), ("--serve-isolation", "process"),
+    ("--heartbeat-file", "{out}.hb"), ("--metrics-file", "{out}.prom"),
+    ("--trace-out", "{out}.trace.json"),
+    ("KAMINPAR_TPU_HEARTBEAT_FILE", "{out}.hb"),
+    ("KAMINPAR_TPU_METRICS_FILE", "{out}.prom"),
+]
+
+
+@pytest.mark.parametrize("flag,value", SERVING_CASES)
+def test_serving_flags_and_variables_are_the_jax_clis(flag, value,
+                                                      tmp_path, capsys,
+                                                      monkeypatch):
+    """Each flag (or variable) of the serving layer, the supervisor's
+    heartbeat, the live metrics and the Chrome trace runs a batch in both
+    CLIs: the same SERVED records, and files with the same heartbeat,
+    metric names and trace tracks.  `--serve-isolation process` serves
+    the port's batch in a spawned worker and the JAX CLI's in process."""
+    batch, base = serve_setup(tmp_path, traced=flag == "--trace-out")
+    got = {}
+    for pkg, main in (("jax", jcli.main), ("port", tcli.main)):
+        out = str(tmp_path / pkg)
+        argv = ["--serve-batch", batch] + base
+        val = value.format(out=out) if value else None
+        if flag.startswith("KAMINPAR_TPU_"):
+            monkeypatch.setenv(flag, val)
+        elif flag == "--serve-isolation" and pkg == "jax":
+            argv += [flag, "inproc"]
+        elif flag != "--serve-batch":
+            argv += [flag, val]
+        if pkg == "port":
+            argv += ["--device", "cpu"]
+        rc, stdout, _ = run(main, argv, capsys)
+        assert rc == 0, (pkg, stdout)
+        got[pkg] = (served_lines(stdout), val)
+        for mod in (jres, tres, jtel, ttel, jmetrics, tmetrics):
+            mod.reset()
+    assert got["port"][0] == got["jax"][0]
+    rows = got["port"][0]
+    if flag == "--serve-cost-cap":
+        assert all("reason=" in r for r in rows)
+    else:
+        assert any("cache=hit" in r for r in rows)
+    assert any("reason=invalid-parameters" in r for r in rows)
+    jpath, tpath = got["jax"][1], got["port"][1]
+    if flag.endswith(("HEARTBEAT_FILE", "heartbeat-file")):
+        assert os.path.exists(jpath) and os.path.exists(tpath)
+    elif flag.endswith(("METRICS_FILE", "metrics-file")):
+        names = metric_names(tpath)
+        assert names == metric_names(jpath)
+        assert {"kmp_requests_total", "kmp_cache_hit_rate"} <= names
+    elif flag == "--trace-out":
+        tracks = trace_tracks(tpath)
+        assert tracks == trace_tracks(jpath)
+        assert (1000, 0, "request a") in tracks
 
 
 def test_the_flag_set_is_the_jax_clis():

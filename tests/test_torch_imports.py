@@ -118,6 +118,31 @@ def test_scan_covers_the_dist_modules(module):
     test_scan_covers_the_file_io_and_telemetry_modules(module)
 
 
+@pytest.mark.parametrize("module", [
+    "serving/__init__.py", "serving/service.py", "serving/batch.py",
+    "resilience/supervisor.py", "telemetry/metrics.py",
+    "telemetry/tracing.py", "telemetry/chrome_trace.py",
+    "telemetry/perf.py",
+])
+def test_scan_covers_the_serving_and_observability_modules(module):
+    """The serving layer, the supervisor, live metrics, request tracing
+    and the Chrome trace are in the scan: each imports, and imports
+    neither JAX nor the JAX package."""
+    test_scan_covers_the_file_io_and_telemetry_modules(module)
+
+
+def test_serving_exports_the_jax_names():
+    import kaminpar_tpu.serving as js
+    import kaminpar_tpu_torch.serving as ts
+
+    public = {n for n in dir(js) if not n.startswith("_")} - {
+        "batch", "service"}
+    assert public == {"PartitionRequest", "PartitionService",
+                      "RequestRecord", "ServiceConfig", "VERDICTS"}
+    assert public <= set(dir(ts))
+    assert ts.VERDICTS == js.VERDICTS
+
+
 def test_dist_layer_exports_the_jax_names():
     """kaminpar_tpu_torch.parallel exports the JAX package's __all__."""
     import kaminpar_tpu.parallel as jp
