@@ -25,6 +25,11 @@ Phases, each fatal on failure:
      `label_range=` and with `communities=` and K2 over the shard's spans
      with its owned-plus-ghost label table, each bitwise against its twin
      with rows whose winner the mask changes, and timed beside its bound;
+     and the standalone K3 swept over slot tables of S = 8, 64, 128, 512,
+     6 and 7 and a base off a 16-byte boundary (sweep_k3), with
+     require_fit on and off, communities=, label_range=, empty rows and
+     ties broken by the hash, bitwise against its twin (phase 15 sweeps
+     its int64 variant);
   4. partition make_rmat(1<<14, 120_000, seed=3) at k=8 on the CPU and on
      the card: the two partitions must be bitwise equal, and both must
      have run the native initial bipartitioner;
@@ -531,6 +536,7 @@ def main() -> None:
                                        for k, v in build_s.items()},
                       "host_lib_s": host_s}),
           flush=True)
+    print(json.dumps({"registers": kernel_registers(_native)}), flush=True)
 
     # -- 3. kernels vs twins at the main path's shapes
     main_runs = [
@@ -1755,8 +1761,10 @@ def check_k3(core, kp, gather, rating, segments, Coarsener,
         "cost_function": COST_FUNCTIONS["best_from_slots"],
         "library_ms": None,
         "shape": {"graph": "medium", "rows": rows, "slots": S},
+        "sweep": sweep_k3(rating, torch, dev),
     }
     del outs, refs, outs_nf, refs_nf
+    print_k3_vs_parent("medium, int32", ms)
 
     # -- fused: the level's spans, then the edge cases
     def fused_case(what, args, blind=False, contested=False):
@@ -1854,6 +1862,157 @@ def check_k3(core, kp, gather, rating, segments, Coarsener,
                   "num_slots": num_slots, "hub_edges": hub_m},
     }
     return [standalone, fused]
+
+
+# ---------------------------------------------------------------------------
+# the standalone K3's sweep, and its time beside the design it replaced
+# ---------------------------------------------------------------------------
+
+# slots per row of the sweep's tables: 8, 64, 128 and 512 take the
+# kernel's 16-byte vectors (lane groups of 1, 8, 16 and 32 lanes, 512 in
+# two chunks), 6 (num_slots 3) its 8-byte vectors, 7 its scalar loads
+K3_SWEEP_SLOTS = (8, 64, 128, 512, 6, 7)
+# rows of each table: a prime, so no lane group's rows per block divide it
+K3_SWEEP_ROWS = 4099
+# the device ms of the standalone K3's earlier design (a warp a row,
+# 4-byte loads, lookups before the comparison; csrc/best_from_slots.cu at
+# commit 0ad4416) on an NVIDIA H100 80GB HBM3 at 700.00 W, at the shapes
+# this script times (PERF.md, section 6: medium and the dist shard timed
+# in turns with this design); printed beside this run's times, not
+# measured here
+K3_PARENT_MS = {"medium, int32": 0.0511, "heavy medium, int64": 0.056,
+                "dist shard, label_range": 0.0084}
+
+
+def kernel_registers(_native) -> dict:
+    """source -> kernel -> {"REG", "STACK", "SHARED", "LOCAL"} of the
+    package's built CUDA libraries, as `cuobjdump -res-usage` reads them
+    (LOCAL: a thread's bytes of local memory, spills included);
+    {"error": ...} where it cannot read them."""
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.path.dirname(_native._nvcc()), "cuobjdump")
+    if not os.path.exists(tool):
+        return {"error": "no cuobjdump beside nvcc"}
+    found = {}
+    for src in _native.SOURCES:
+        res = subprocess.run([tool, "-res-usage", str(_native._lib_path(src))],
+                             capture_output=True, text=True, timeout=120)
+        if res.returncode != 0:
+            found[src] = {"error": (res.stderr or res.stdout)[-300:]}
+            continue
+        names, usage = [], []
+        for name, fields in re.findall(
+                r"Function (\S+):\s*\n\s*(REG:.*)", res.stdout):
+            names.append(name)
+            usage.append({k: int(v) for k, v in re.findall(
+                r"(REG|STACK|SHARED|LOCAL):(\d+)", fields)})
+        if shutil.which("c++filt") and names:
+            plain = subprocess.run(["c++filt"], input="\n".join(names),
+                                   capture_output=True, text=True).stdout
+            short = [re.sub(r"\(anonymous namespace\)::|^void ", "",
+                            line).split("(")[0]
+                     for line in plain.splitlines()]
+            if len(short) == len(names):
+                names = short
+        found[src] = dict(zip(names, usage))
+    return found
+
+
+def print_k3_vs_parent(shape: str, ms: float) -> None:
+    """This run's standalone K3 device ms at `shape`, on a line of its own
+    beside the earlier design's recorded time there."""
+    print(json.dumps({"k3_vs_parent": {
+        "shape": shape, "ms": ms, "parent_ms_recorded": K3_PARENT_MS[shape],
+        "card": CARD}}), flush=True)
+
+
+def sweep_k3(rating, torch, dev) -> dict:
+    """The standalone K3 bitwise against its twin on synthetic slot tables
+    in this process's weight dtype (int64 in phase 15): K3_SWEEP_ROWS rows
+    of each S in K3_SWEEP_SLOTS, and of S = 128 with the tables' base 4
+    bytes past a 16-byte boundary (the scalar path).  One slot in five is
+    empty, one row in seven all empty, half the rows hold their own
+    label; weights lie in [0, 4) (plus 2^33 in int64), so the hash breaks
+    ties; cluster weights lie just under the cap and every 37th at the
+    weight type's max, where the fit test wraps.  Each table with
+    require_fit on and off, plain, under communities=, label_range= and
+    both.  Fails on a difference, or when no row had a tie, an empty row,
+    a wrapped fit or a winner that a mask changed; returns the counts."""
+    from kaminpar_tpu_torch.dtypes import WEIGHT_DTYPE
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(13)
+    n, wdt = K3_SWEEP_ROWS, WEIGHT_DTYPE
+    wmax = torch.iinfo(wdt).max
+    base = (1 << 33) if wdt == torch.int64 else 0
+    cap = torch.full((n,), base + 64, dtype=wdt, device=dev)
+    cw_np = base + 64 - rng.integers(0, 4, n)
+    cw_np[::37] = wmax
+    cw = torch.from_numpy(cw_np).to(dev, wdt)
+    node_w = torch.from_numpy(rng.integers(1, 3, n)).to(dev, wdt)
+    comm = torch.from_numpy(rng.integers(0, 3, n)).to(dev, torch.int32)
+    masks = {"plain": {}, "communities": {"communities": comm},
+             "label_range": {"label_range": (n // 4, 3 * n // 4)}}
+    masks["both"] = dict(masks["communities"], **masks["label_range"])
+    totals = {"tables": 0, "calls": 0, "tied_rows": 0, "empty_rows": 0,
+              "wrapped_rows": 0, "fit_masked_rows": 0,
+              "communities_masked_rows": 0, "label_range_masked_rows": 0}
+    for S in K3_SWEEP_SLOTS + ("128, base off 16 B",):
+        s, off = (128, 1) if isinstance(S, str) else (S, 0)
+        size = n * s + off
+        lab = rng.integers(0, n, size).astype(np.int32)
+        lab[rng.random(size) < 0.2] = -1
+        w = np.where(lab >= 0, base + rng.integers(0, 4, size), 0)
+        sl = torch.from_numpy(lab).to(dev)[off:].view(n, s)
+        sw = torch.from_numpy(w).to(dev, wdt)[off:].view(n, s)
+        sl[::7] = -1
+        sw[::7] = 0
+        if sl.data_ptr() % 16 == 0 and off:
+            fail("K3 sweep: the offset table is 16-byte aligned")
+        pick = sl[torch.arange(n, device=dev),
+                  torch.from_numpy(rng.integers(0, s, n)).to(dev)]
+        labels = torch.from_numpy(rng.integers(0, n, n)).to(dev, torch.int32)
+        labels = torch.where(
+            (pick >= 0) & torch.from_numpy(rng.random(n) < 0.5).to(dev),
+            pick, labels)
+        args = (sl, sw, labels, cw, node_w, cap, int(rng.integers(0, 2**31)))
+        best = {}
+        for fit in (True, False):
+            for what, kw in masks.items():
+                out = rating.best_from_slots(*args, require_fit=fit, **kw)
+                ref = rating.best_from_slots_twin(*args, require_fit=fit,
+                                                  **kw)
+                torch.cuda.synchronize()
+                for o, r in zip(out, ref):
+                    if o.dtype != r.dtype or not torch.equal(o, r):
+                        fail(f"K3 sweep: the kernel disagrees with its twin "
+                             f"at S = {S}, require_fit={fit}, {what}, "
+                             f"{wdt}")
+                best[fit, what] = out
+                totals["calls"] += 1
+        free_best, free_w, _ = best[False, "plain"]
+        feas = (sl >= 0) & (sl != labels[:, None])
+        at = feas & (sw == free_w[:, None])
+        big = torch.iinfo(torch.int32).max
+        totals["tied_rows"] += int((
+            torch.where(at, sl, big).min(dim=1).values
+            != torch.where(at, sl, -1).max(dim=1).values).sum())
+        totals["empty_rows"] += int((sl < 0).all(dim=1).sum())
+        fit_best = best[True, "plain"][0]
+        totals["wrapped_rows"] += int(
+            ((fit_best >= 0) & (cw[fit_best.clamp(min=0)] == wmax)).sum())
+        totals["fit_masked_rows"] += int((fit_best != free_best).sum())
+        for what in ("communities", "label_range"):
+            totals[f"{what}_masked_rows"] += int(
+                (best[False, what][0] != free_best).sum())
+        totals["tables"] += 1
+    blind = [k for k, v in totals.items() if v == 0]
+    if blind:
+        fail(f"K3 sweep is blind: no row counted in {blind}")
+    totals["weights"] = str(wdt).replace("torch.", "")
+    totals["seconds"] = round(time.perf_counter() - t0, 3)
+    print(json.dumps({"k3_sweep": totals}), flush=True)
+    return totals
 
 
 def check_k3_communities(core, core_part, kp, rating, Coarsener,
@@ -2733,6 +2892,7 @@ def check_dist_kernels(graph, kp, gather, rating, dev, torch) -> dict:
             lambda: rating.best_from_slots_twin(*args, **ranged), torch),
         "bound_ms": b, "bound_by": by,
     }}
+    print_k3_vs_parent("dist shard, label_range", ms)
     # K2: a 16-block table over the shard's spans, labels owned + ghosts
     part_tab = ((lab_tab * 5) % K_MAIN).to(torch.int32)
     m_shard = int(sh.row_end[-1])
@@ -3819,7 +3979,9 @@ def check_int64_kernels(graphs, kp, gather, rating, segments, Coarsener,
         rating.best_from_slots_i64_cost(slot_label, slot_w), torch,
         cases={w: {"masked_rows": m, "wrapped_rows": r}
                for w, (m, r) in cases.items()},
-        shape={"graph": "heavy medium", "rows": rows, "slots": S}))
+        shape={"graph": "heavy medium", "rows": rows, "slots": S},
+        sweep=sweep_k3(rating, torch, dev)))
+    print_k3_vs_parent("heavy medium, int64", entries[-1]["ms"])
     del out, ref, tied, sentinel
 
     # -- the fused K3 int64: the level's spans at the level's num_slots,

@@ -13,7 +13,8 @@
 //   feasible or the best weight is INT32_MIN.
 // That lexicographic max is exactly the JAX three-stage reduction (max
 // weight, then max hash among the tied, then max label).  RowArgmax is
-// that reduction for one row, by one warp; every kernel below uses it.
+// that reduction for one row, by one warp; the fused kernels use it, the
+// standalone kernel has its own (RowScan, below).
 //
 // The 64-bit weight build (KAMINPAR_TPU_64BIT=1).  Every kernel here is a
 // template over the weight type W: int32_t, or long long for the int64
@@ -35,11 +36,41 @@
 // lo <= l < hi (the dist path's local-lp clusterer, which joins only
 // clusters led by a node of its own shard); w_own does not depend on
 // either mask.
-// Bound on the H100: bytes.  The two slot tables (n_pad * S * 8 bytes)
-// are read once; the cluster-weight lookups hit L2.  Design: one warp per
-// row, each lane strides over the S = 2 * num_slots slots with coalesced
-// loads, keeps its own running best, and a shuffle butterfly merges the
-// 32 candidates; lane 0 writes the three outputs.
+// Bound on the H100: bytes.  The two slot tables (n_pad * S * (4 +
+// sizeof(W)) bytes) are read once and nothing else is as large; the
+// cluster-weight, cap and community lookups hit L1 or L2.  The design
+// keeps the stream's bytes in flight and takes the lookups off its path:
+// - Vectors.  A lane reads its slots V at a time: one 16-byte load of
+//   labels and one (int32) or two (int64) of weights, V = 4, streamed
+//   (__ldcs: read once, they do not evict the lookups' lines from L1).  A
+//   table whose rows are not 16-byte aligned (S % 4 != 0, or a base off a
+//   16-byte boundary) takes V = 2 (8-byte label loads) or V = 1; the
+//   kernel is a template over V.
+// - Lane groups sized to the row.  Each lane takes kVecs = 2 vectors of
+//   an item, so a row of S / V vectors gets a group of G = min(32, next
+//   power of two >= S / (2 V)) lanes and a warp takes 32 / G consecutive
+//   rows at once (S = 128: G = 16, two rows; S = 8: one lane a row), so a
+//   short row idles no lanes.  Within each of its two loads the warp reads
+//   neighbouring vectors; a row longer than 2 G vectors is read in chunks.
+// - Register double buffering on a persistent grid.  The grid is the SM
+//   count times the blocks an SM holds (cudaOccupancy...), and each warp
+//   walks its (rows, chunk) items with the next item's loads, and its rows'
+//   own labels, node weights and communities, sent out before the current
+//   item is reduced.
+// - Feasibility after comparison.  A lane compares each slot with its best
+//   feasible candidate (weight, hash, label) first, and reads cw[l], cap[l]
+//   and communities[l] only for a slot that would win.  The kept candidate
+//   is feasible either way, so the result is the same; a slot that cannot
+//   win adds no dependent load.  w_own is taken from every slot that holds
+//   the row's own label, before any mask.
+// - A butterfly of width G merges each group's candidates (shuffles with
+//   width G, so the groups of a warp merge at once); the group's first
+//   lane writes the row's three outputs.
+// Tried on the card and left out (PERF.md section 6): a ring of 4 or 8 stages
+// per warp in shared memory filled by 1-D bulk copies (cp.async.bulk with
+// an mbarrier), one vector or four per lane, two items in flight, a
+// group-wide fit test of the row's best candidate, and eager lookups of
+// every candidate: each was slower than this design.
 //
 // Fused (kp_scatter_best_from_slots): rating.scatter_slot_ratings followed
 // by the reduction above, for the edges of each row's span [start, end)
@@ -226,49 +257,250 @@ __device__ __forceinline__ RowBest<W> kp_row_best(const Slots& slots, int S,
 
 // ---------------------------------------------------------- standalone K3
 
+namespace {
+
+constexpr int kScanThreads = 256;  // 8 warps a block
+constexpr int kVecs = 2;           // vectors a lane reads per item
+
 template <class W>
-struct GlobalSlots {
-  const int32_t* __restrict__ lab;
-  const W* __restrict__ w;
-  __device__ __forceinline__ void operator()(int j, int32_t& l,
-                                             W& x) const {
-    l = __ldg(lab + j);
-    x = __ldg(w + j);
+struct ScanArgs {
+  const int32_t* __restrict__ slot_label;
+  const W* __restrict__ slot_w;
+  const int32_t* __restrict__ labels;
+  const W* __restrict__ cw;
+  const W* __restrict__ node_w;
+  const W* __restrict__ cap;
+  const int32_t* __restrict__ comm;  // null: no community restriction
+  int32_t* out_best;
+  W* out_w;
+  W* out_own;
+  long long n_rows;
+  long long n_steps;  // warp steps: ceil(n_rows / rows_per_warp)
+  int S, C;
+  int G, log_g;  // lanes per row (a power of two <= 32) and its log2
+  int nv;        // vectors per row, S / V
+  int chunks;    // items per row: ceil(nv / (G * kVecs)), at least 1
+  uint32_t salt;
+  int require_fit, has_range;
+  int32_t lo, hi;
+};
+
+// one 16-, 8- or 4-byte load of V consecutive entries, streamed (read
+// once: __ldcs keeps them from evicting the lookups' lines from L1)
+template <int V>
+__device__ __forceinline__ void load_vec(const int32_t* p, int32_t* x) {
+  if constexpr (V == 4) {
+    const int4 v = __ldcs(reinterpret_cast<const int4*>(p));
+    x[0] = v.x;
+    x[1] = v.y;
+    x[2] = v.z;
+    x[3] = v.w;
+  } else if constexpr (V == 2) {
+    const int2 v = __ldcs(reinterpret_cast<const int2*>(p));
+    x[0] = v.x;
+    x[1] = v.y;
+  } else {
+    x[0] = __ldcs(p);
+  }
+}
+template <int V>
+__device__ __forceinline__ void load_vec(const long long* p, long long* x) {
+  if constexpr (V == 4) {
+    const longlong2 a = __ldcs(reinterpret_cast<const longlong2*>(p));
+    const longlong2 b = __ldcs(reinterpret_cast<const longlong2*>(p) + 1);
+    x[0] = a.x;
+    x[1] = a.y;
+    x[2] = b.x;
+    x[3] = b.y;
+  } else if constexpr (V == 2) {
+    const longlong2 a = __ldcs(reinterpret_cast<const longlong2*>(p));
+    x[0] = a.x;
+    x[1] = a.y;
+  } else {
+    x[0] = __ldcs(p);
+  }
+}
+
+// What a lane holds of one item: kVecs vectors of V slots of one row, and
+// the row's own label, node weight and community.
+template <class W, int V>
+struct Item {
+  int32_t lab[kVecs * V];
+  W w[kVecs * V];
+  int32_t own, own_comm;
+  W nw;
+};
+
+// A warp's position in its items: step (32 / G rows) and chunk (G *
+// kVecs vectors of each of those rows).
+struct Cursor {
+  long long step;
+  int chunk;
+  __device__ __forceinline__ void next(int chunks, long long stride) {
+    if (++chunk == chunks) {
+      chunk = 0;
+      step += stride;
+    }
   }
 };
 
-template <class W>
-__global__ void best_from_slots_kernel(
-    const int32_t* __restrict__ slot_label, const W* __restrict__ slot_w,
-    const int32_t* __restrict__ labels, const W* __restrict__ cw,
-    const W* __restrict__ node_w, const W* __restrict__ cap,
-    int32_t* __restrict__ out_best, W* __restrict__ out_w,
-    W* __restrict__ out_own, long long n_rows, int S, int C,
-    uint32_t salt, int require_fit, const int32_t* __restrict__ comm,
-    int has_range, int32_t lo, int32_t hi) {
-  const long long warps_per_block = blockDim.x >> 5;
-  const long long first = (long long)blockIdx.x * warps_per_block +
-                          (threadIdx.x >> 5);
-  const long long step = (long long)gridDim.x * warps_per_block;
-  for (long long row = first; row < n_rows; row += step) {
-    RowArgmax<W> acc(__ldg(labels + row), __ldg(node_w + row), cw, cap, C,
-                     salt, require_fit);
-    if (comm != nullptr) {
-      acc.comm = comm;
-      acc.n = (int)n_rows;
-      acc.own_comm = __ldg(comm + row);
-    }
-    acc.has_range = has_range;
-    acc.lo = lo;
-    acc.hi = hi;
-    const RowBest<W> r = kp_row_best<W>(
-        GlobalSlots<W>{slot_label + row * S, slot_w + row * S}, S, acc);
-    if ((threadIdx.x & 31) == 0) {
-      out_best[row] = r.best;
-      out_w[row] = r.best_w;
-      out_own[row] = r.w_own;
+// Load the item at `at` for this lane's group: row step * (32 / G) +
+// group; vector (chunk * kVecs + k) * G + lane-in-group for k < kVecs.  A
+// row past n_rows or a vector past the row reads nothing and holds empty
+// slots (label -1, weight 0).
+template <class W, int V>
+__device__ __forceinline__ void load_item(const ScanArgs<W>& a, Cursor at,
+                                          Item<W, V>& it) {
+  const int lane = threadIdx.x & 31;
+  const long long row = (at.step << (5 - a.log_g)) + (lane >> a.log_g);
+  const bool in_row = row < a.n_rows;
+#pragma unroll
+  for (int k = 0; k < kVecs; ++k) {
+    const int v = (at.chunk * kVecs + k) * a.G + (lane & (a.G - 1));
+    if (in_row && v < a.nv) {
+      const long long off = row * a.S + (long long)v * V;
+      load_vec<V>(a.slot_label + off, it.lab + k * V);
+      load_vec<V>(a.slot_w + off, it.w + k * V);
+    } else {
+#pragma unroll
+      for (int i = 0; i < V; ++i) {
+        it.lab[k * V + i] = -1;
+        it.w[k * V + i] = 0;
+      }
     }
   }
+  it.own = in_row ? __ldg(a.labels + row) : -1;
+  it.nw = in_row && a.require_fit ? __ldg(a.node_w + row) : 0;
+  it.own_comm = in_row && a.comm != nullptr ? __ldg(a.comm + row) : 0;
+}
+
+// A lane's running best feasible candidate of one row, and w_own.
+template <class W>
+struct RowScan {
+  W w_own, bw;
+  int32_t bh, bl;
+
+  __device__ __forceinline__ void reset() {
+    w_own = 0;
+    bw = kp_wmin<W>();
+    bh = -1;
+    bl = -1;
+  }
+
+  // the fit and community tests of label lab for the item's row
+  template <int V>
+  __device__ __forceinline__ bool feasible(const ScanArgs<W>& a,
+                                           int32_t lab,
+                                           const Item<W, V>& it) const {
+    if (a.require_fit) {
+      const int32_t c = lab >= a.C ? a.C - 1 : lab;
+      if (kp_wrap_add(__ldg(a.cw + c), it.nw) > __ldg(a.cap + c)) {
+        return false;
+      }
+    }
+    return a.comm == nullptr ||
+           __ldg(a.comm + (lab >= a.n_rows ? a.n_rows - 1 : lab)) ==
+               it.own_comm;
+  }
+
+  // The item's slots in turn.  A slot is compared with the lane's best
+  // first; only one that would win is looked up for fit and community.
+  // The best is feasible either way, so the result is the same.
+  template <int V>
+  __device__ __forceinline__ void add(const ScanArgs<W>& a,
+                                      const Item<W, V>& it) {
+#pragma unroll
+    for (int i = 0; i < kVecs * V; ++i) {
+      const int32_t lab = it.lab[i];
+      const W w = it.w[i];
+      if (lab == it.own && w > w_own) w_own = w;
+      if (lab < 0 || lab == it.own || w < bw) continue;
+      if (a.has_range && (lab < a.lo || lab >= a.hi)) continue;
+      const int32_t h = kp_hash_u32(lab, a.salt);
+      if (w == bw && (h < bh || (h == bh && lab <= bl))) continue;
+      if (!feasible(a, lab, it)) continue;
+      bw = w;
+      bh = h;
+      bl = lab;
+    }
+  }
+
+  // merge the G lanes of each group (every lane of the warp calls it)
+  __device__ __forceinline__ RowBest<W> result(int G) {
+    for (int off = G >> 1; off > 0; off >>= 1) {
+      const W ow = __shfl_xor_sync(0xffffffffu, bw, off, G);
+      const int32_t oh = __shfl_xor_sync(0xffffffffu, bh, off, G);
+      const int32_t ol = __shfl_xor_sync(0xffffffffu, bl, off, G);
+      const W oo = __shfl_xor_sync(0xffffffffu, w_own, off, G);
+      if (kp_better(ow, oh, ol, bw, bh, bl)) {
+        bw = ow;
+        bh = oh;
+        bl = ol;
+      }
+      if (oo > w_own) w_own = oo;
+    }
+    const bool has = bl >= 0 && bw > kp_wmin<W>();
+    return RowBest<W>{has ? bl : -1, has ? bw : kp_wmin<W>(), w_own};
+  }
+};
+
+template <class W, int V>
+__global__ void __launch_bounds__(kScanThreads)
+best_from_slots_kernel(ScanArgs<W> a) {
+  constexpr int kWarps = kScanThreads / 32;
+  const int lane = threadIdx.x & 31;
+  const long long first = (long long)blockIdx.x * kWarps + (threadIdx.x >> 5);
+  const long long stride = (long long)gridDim.x * kWarps;
+  if (first >= a.n_steps) return;  // the whole warp
+  const long long n_items =
+      (a.n_steps - first + stride - 1) / stride * a.chunks;
+  Item<W, V> next;
+  Cursor in{first, 0}, out{first, 0};
+  load_item(a, in, next);
+  RowScan<W> scan;
+  for (long long i = 0; i < n_items; ++i) {  // the same for the warp
+    const Item<W, V> cur = next;
+    if (i + 1 < n_items) {  // the next item's loads go out first
+      in.next(a.chunks, stride);
+      load_item(a, in, next);
+    }
+    if (out.chunk == 0) scan.reset();
+    scan.add(a, cur);
+    if (out.chunk == a.chunks - 1) {
+      const RowBest<W> r = scan.result(a.G);
+      const long long row = (out.step << (5 - a.log_g)) + (lane >> a.log_g);
+      if ((lane & (a.G - 1)) == 0 && row < a.n_rows) {
+        a.out_best[row] = r.best;
+        a.out_w[row] = r.best_w;
+        a.out_own[row] = r.w_own;
+      }
+    }
+    out.next(a.chunks, stride);
+  }
+}
+
+template <class W, int V>
+int launch_scan(const ScanArgs<W>& a, cudaStream_t st) {
+  // the persistent grid: the SM count times the blocks an SM holds of this
+  // kernel, asked once per process (no host query on later launches)
+  static const long long resident = [] {
+    int dev = 0, sms = 0, per_sm = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+            cudaSuccess ||
+        cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+            &per_sm, best_from_slots_kernel<W, V>, kScanThreads, 0) !=
+            cudaSuccess) {
+      return 0LL;
+    }
+    return (long long)sms * per_sm;
+  }();
+  if (resident <= 0) return (int)cudaErrorInvalidConfiguration;
+  const long long warps = kScanThreads / 32;
+  long long blocks = (a.n_steps + warps - 1) / warps;
+  if (blocks > resident) blocks = resident;
+  best_from_slots_kernel<W, V><<<(unsigned)blocks, kScanThreads, 0, st>>>(a);
+  return (int)cudaGetLastError();
 }
 
 template <class W>
@@ -279,22 +511,57 @@ int launch_best_from_slots(const void* slot_label, const void* slot_w,
                            long long n_rows, int S, int C, unsigned int salt,
                            int require_fit, const void* communities,
                            int has_range, int lo, int hi, void* stream) {
-  if (n_rows > 0) {
-    const int threads = 256;  // 8 rows per block
-    long long blocks = (n_rows + 7) / 8;
-    if (blocks > 132LL * 64) blocks = 132LL * 64;
-    best_from_slots_kernel<W><<<(unsigned)blocks, threads, 0,
-                                (cudaStream_t)stream>>>(
-        (const int32_t*)slot_label, (const W*)slot_w, (const int32_t*)labels,
-        (const W*)cw, (const W*)node_w, (const W*)cap, (int32_t*)out_best,
-        (W*)out_w, (W*)out_own, n_rows, S, C, salt, require_fit,
-        (const int32_t*)communities, has_range, lo, hi);
+  if (n_rows <= 0) return (int)cudaGetLastError();
+  ScanArgs<W> a;
+  a.slot_label = (const int32_t*)slot_label;
+  a.slot_w = (const W*)slot_w;
+  a.labels = (const int32_t*)labels;
+  a.cw = (const W*)cw;
+  a.node_w = (const W*)node_w;
+  a.cap = (const W*)cap;
+  a.comm = (const int32_t*)communities;
+  a.out_best = (int32_t*)out_best;
+  a.out_w = (W*)out_w;
+  a.out_own = (W*)out_own;
+  a.n_rows = n_rows;
+  a.S = S;
+  a.C = C;
+  a.salt = salt;
+  a.require_fit = require_fit;
+  a.has_range = has_range;
+  a.lo = lo;
+  a.hi = hi;
+  // V: the widest vector every row's base is aligned to
+  const uintptr_t pl = (uintptr_t)slot_label, pw = (uintptr_t)slot_w;
+  int V = 1;
+  if (S % 4 == 0 && pl % 16 == 0 && pw % 16 == 0) {
+    V = 4;
+  } else if (S % 2 == 0 && pl % 8 == 0 && pw % (2 * sizeof(W)) == 0) {
+    V = 2;
   }
-  return (int)cudaGetLastError();
+  // G: the least power of two (at most 32) of lanes that, kVecs vectors
+  // each, cover the row; a longer row takes several chunks
+  a.nv = S / V;
+  const int per_lane = (a.nv + kVecs - 1) / kVecs;
+  a.log_g = 0;
+  while (a.log_g < 5 && (1 << a.log_g) < per_lane) ++a.log_g;
+  a.G = 1 << a.log_g;
+  const int span = a.G * kVecs;
+  a.chunks = a.nv > span ? (a.nv + span - 1) / span : 1;
+  const long long rows_per_warp = 32 >> a.log_g;
+  a.n_steps = (n_rows + rows_per_warp - 1) / rows_per_warp;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (V == 4) return launch_scan<W, 4>(a, st);
+  if (V == 2) return launch_scan<W, 2>(a, st);
+  return launch_scan<W, 1>(a, st);
 }
 
-// slot_w, cw, node_w, cap, out_w and out_own are int32 here and int64 in
-// kp_best_from_slots_i64; labels, slot labels and best are int32 in both.
+}  // namespace
+
+// n_rows rows of S slots (any S >= 0; the slot tables' bases need no
+// alignment).  slot_w, cw, node_w, cap, out_w and out_own are int32 here
+// and int64 in kp_best_from_slots_i64; labels, slot labels, communities
+// and best are int32 in both.
 extern "C" int kp_best_from_slots(const void* slot_label, const void* slot_w,
                                   const void* labels, const void* cw,
                                   const void* node_w, const void* cap,

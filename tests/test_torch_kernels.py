@@ -26,6 +26,7 @@ from kaminpar_tpu_torch.convert import (
 )
 from kaminpar_tpu_torch.ops import gather, rating
 from kaminpar_tpu_torch.ops import segments as T
+from torch_heavy import run_64bit
 from torch_threads import one_torch_thread  # noqa: F401
 
 I32_MIN = np.iinfo(np.int32).min
@@ -192,7 +193,7 @@ def _slot_tables(jg, tg, num_slots, salt, label_space, seed):
     return labels, [np.asarray(a) for a in jt]
 
 
-@pytest.mark.parametrize("num_slots", [8, 32])
+@pytest.mark.parametrize("num_slots", [4, 8, 32, 64, 256])
 @pytest.mark.parametrize("salt", [13, -5, 0x7FFFFFFF])
 def test_k3_matches_pallas_unconstrained(graphs, num_slots, salt):
     jg, tg = graphs
@@ -237,9 +238,13 @@ def test_k3_matches_masked_best_from_slots(graphs, cap_value):
         np.testing.assert_array_equal(np.asarray(a), b.numpy())
 
 
-def test_k3_twin_supports_communities_and_label_range(graphs):
+# num_slots 3: S = 6 slots per row, not a multiple of 4 (the CUDA
+# kernel's 8-byte path)
+@pytest.mark.parametrize("num_slots", [3, 16, 64])
+def test_k3_twin_supports_communities_and_label_range(graphs, num_slots):
     jg, tg = graphs
-    labels, (slot_label, slot_w, _) = _slot_tables(jg, tg, 16, 5, 200, 2)
+    labels, (slot_label, slot_w, _) = _slot_tables(jg, tg, num_slots, 5,
+                                                   200, 2)
     rng = np.random.default_rng(4)
     comm = rng.integers(0, 3, tg.n_pad).astype(np.int32)
     cw = np.zeros(tg.n_pad, dtype=np.int32)
@@ -350,6 +355,53 @@ def test_kernel_sources_name_what_they_replace():
 
 # ------------------------------------------------------------ on the card
 
+# the standalone K3's num_slots on the card: those of the CPU tests; 3
+# gives S = 6, which the kernel reads in 8-byte vectors
+K3_CARD_SLOTS = (3, 4, 8, 16, 32, 64, 256)
+
+
+def k3_card_cases(dev) -> int:
+    """The standalone K3 against its twin on CUDA tensors, in the weight
+    dtype of this process's build: the scatter slot tables of a 2^12-node
+    graph at every num_slots of K3_CARD_SLOTS, cut to n_pad - 3 rows (a
+    multiple of no lane group's rows per block), with require_fit on and
+    off, communities= and label_range=; cluster weights around the cap
+    and every 37th at the weight type's max, where the fit test wraps.
+    Returns the number of calls compared."""
+    from kaminpar_tpu_torch.dtypes import WEIGHT_DTYPE
+    from kaminpar_tpu_torch.graphs.csr import device_graph_from_host
+    from kaminpar_tpu_torch.graphs.factories import make_rmat
+
+    g = device_graph_from_host(make_rmat(1 << 12, 40000, seed=2), dev)
+    gen = np.random.default_rng(3)
+    rows = g.n_pad - 3
+    labels = labels_from_numpy(gen.integers(0, rows, g.n_pad), dev)
+    nb = gather.gather_i32(labels, g.dst)
+    wmax = torch.iinfo(WEIGHT_DTYPE).max
+    cw = torch.from_numpy(gen.integers(1, 4, rows)).to(dev, WEIGHT_DTYPE)
+    cw[::37] = wmax
+    cap = torch.full((rows,), 3, dtype=WEIGHT_DTYPE, device=dev)
+    comm = labels_from_numpy(gen.integers(0, 3, rows), dev)
+    calls = 0
+    for num_slots in K3_CARD_SLOTS:
+        sl, sw, _ = rating.scatter_slot_ratings(g.src, nb, g.edge_w,
+                                                g.n_pad, num_slots, 7)
+        assert sw.dtype == WEIGHT_DTYPE
+        args = (sl[:rows], sw[:rows], labels[:rows], cw, g.node_w[:rows],
+                cap, -11)
+        for fit in (True, False):
+            for kw in ({}, {"communities": comm},
+                       {"label_range": (rows // 4, rows // 2)}):
+                a = rating.best_from_slots(*args, require_fit=fit, **kw)
+                b = rating.best_from_slots_twin(*args, require_fit=fit,
+                                                **kw)
+                torch.cuda.synchronize()
+                for x, y in zip(a, b):
+                    assert x.dtype == y.dtype and torch.equal(x, y), (
+                        num_slots, fit, kw.keys())
+                calls += 1
+    return calls
+
 
 @pytest.mark.cuda
 def test_kernels_match_twins_on_card():
@@ -417,3 +469,12 @@ def test_kernels_match_twins_on_card():
     assert (best[True] != best[False]).any()
     chosen = best[True]
     assert ((chosen >= 0) & (cw[chosen.clamp(min=0)] == i32_max)).any()
+    # the standalone K3 at every num_slots of the CPU tests: int32 here,
+    # int64 in a child of the 64-bit build
+    expected = len(K3_CARD_SLOTS) * 6
+    assert k3_card_cases(dev) == expected
+    assert run_64bit(
+        "import json, torch\n"
+        "from test_torch_kernels import k3_card_cases\n"
+        "print(json.dumps({'calls': k3_card_cases(torch.device('cuda'))}))"
+    ) == {"calls": expected}
